@@ -1,6 +1,6 @@
 // Native classical number-theory kernels for Shor's algorithm.
 //
-// TPU-native rebuild of the reference's classical post-processing layer
+// Rebuild of the reference's classical post-processing layer
 // (qc_shor.c:756-964), which is itself native C.  Exact 64-bit integer
 // arithmetic throughout: modular exponentiation is square-and-multiply with
 // __uint128_t intermediates, fixing the reference's INT_POW double-rounding
@@ -10,7 +10,7 @@
 // the coefficient array in reverse.
 //
 // Exposed as a C ABI for ctypes binding (see
-// quantumcomputer_tpu/algorithms/_native.py).
+// quantumcomputer/algorithms/_native.py).
 
 #include <cstdint>
 #include <cmath>
@@ -119,7 +119,7 @@ uint64_t qc_modinv(uint64_t a, uint64_t C) {
 }
 
 // Cycle schedule for the cycle-ordered oracle kernel
-// (quantumcomputer_tpu/ops/pallas_oracle.py): order output rows along the
+// (quantumcomputer/ops/pallas_oracle.py): order output rows along the
 // permutation's cycles so each input row is read exactly once.  prev_kind:
 // 0 = chain from the previous step's source, 1 = fresh read (cycle head),
 // 2 = self (fixed point), 3 = cycle-closing step (source = the saved head

@@ -1,0 +1,4 @@
+from quantumcomputer.cli import main
+import sys
+
+sys.exit(main())

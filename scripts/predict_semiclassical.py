@@ -12,10 +12,9 @@ algorithms/semiclassical.py:_oracle_pass), and replaying the engine's
 own PRNG stream (key split + uniform draws, shor.py:484 /
 semiclassical.py rs) reproduces its exact bit sequence — validated
 bit-for-bit against the CPU engine (tests/test_semiclassical.py::
-test_predictor_matches_engine) and against TPU hardware at M=30
-complex32 (the 30-bit demo, scripts/tpu_validate.sh step 3).
+test_predictor_matches_engine).
 
-Use: pick a seed for a large forced-a demo run WITHOUT paying a TPU
+Use: pick a seed for a large forced-a demo run WITHOUT paying a device
 attempt per candidate —
 
     python scripts/predict_semiclassical.py 1060314373 2 45 [seeds]
@@ -115,7 +114,7 @@ def predict_attempt(C: int, a: int, L: int, seed: int, r: int | None = None):
     """Full pipeline for one forced-a attempt: bits -> x~ -> period ->
     factors, using the repo's own continued-fraction recovery."""
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
-    from quantumcomputer_tpu.algorithms import number_theory as nt
+    from quantumcomputer.algorithms import number_theory as nt
 
     if r is None:
         r = multiplicative_order(a, C)

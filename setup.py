@@ -34,7 +34,7 @@ class BuildSharedLib(build_ext):
 setup(
     ext_modules=[
         Extension(
-            "quantumcomputer_tpu.libqc_classical",
+            "quantumcomputer.libqc_classical",
             sources=["native/qc_classical.cpp"],
             language="c++",
             extra_compile_args=["-O2", "-std=c++17", "-fPIC"],

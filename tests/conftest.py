@@ -1,7 +1,7 @@
 """Test harness configuration.
 
 Tests run on CPU with 8 virtual devices so mesh/sharding semantics are
-exercised without TPU hardware, and with x64 enabled so complex128 parity
+exercised without accelerator hardware, and with x64 enabled so complex128 parity
 oracles (SURVEY.md §4: <=1e-12 amplitude parity) are meaningful.
 """
 

@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.models import circuit as cir
-from quantumcomputer_tpu.models.circuit import dagger_circuit
-from quantumcomputer_tpu.models.shor_circuit import shor_circuit
-from quantumcomputer_tpu.sim import reference as ref
-from quantumcomputer_tpu.sim import statevec as sv
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.models import circuit as cir
+from quantumcomputer.models.circuit import dagger_circuit
+from quantumcomputer.models.shor_circuit import shor_circuit
+from quantumcomputer.sim import reference as ref
+from quantumcomputer.sim import statevec as sv
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 from tests.conftest import random_state
 
 
@@ -81,11 +81,11 @@ def test_vjp_is_dagger(rng):
 
 
 def test_grad_through_pallas_backend(rng):
-    """End-to-end gradient of a fidelity-style loss through the fused
-    pallas kernels (interpret mode): grad = planar(U^dagger w)."""
+    """End-to-end gradient of a fidelity-style loss through the engine's
+    large-state gate forms (n=14): grad = planar(U^dagger w)."""
     n = 14
     circ = _random_circuit(n, rng, k=12)
-    eng = StateVectorEngine(Register(L=n, M=0), dtype=jnp.complex64, backend="pallas")
+    eng = StateVectorEngine(Register(L=n, M=0), dtype=jnp.complex64)
     psi = random_state(n, rng)
     planar = sv.from_numpy_complex(psi, jnp.float32)
     w = random_state(n, rng)
@@ -114,8 +114,8 @@ def test_grad_through_pallas_backend(rng):
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_sharded_vjp_roundtrip(rng):
-    from quantumcomputer_tpu.parallel.mesh import build_mesh
-    from quantumcomputer_tpu.parallel.sharded import ShardedStateVectorEngine
+    from quantumcomputer.parallel.mesh import build_mesh
+    from quantumcomputer.parallel.sharded import ShardedStateVectorEngine
 
     C, a, L, M = 15, 7, 3, 4
     circ = shor_circuit(C, a, L, M)

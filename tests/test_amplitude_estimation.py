@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.algorithms.amplitude_estimation import amplitude_estimate
+from quantumcomputer.algorithms.amplitude_estimation import amplitude_estimate
 
 
 def test_exact_amplitude_half():
@@ -34,13 +34,13 @@ def test_exact_amplitude_quarter():
     full pre-measurement distribution (deterministic, no sampling)."""
     n, t = 3, 5
     a = 1.0 / (1 << n)
-    from quantumcomputer_tpu.algorithms.qpe import qpe_circuit
-    from quantumcomputer_tpu.algorithms.amplitude_estimation import (
+    from quantumcomputer.algorithms.qpe import qpe_circuit
+    from quantumcomputer.algorithms.amplitude_estimation import (
         _controlled_grover_iterate,
     )
-    from quantumcomputer_tpu.algorithms.shor import read_omega
-    from quantumcomputer_tpu.models.circuit import H, X
-    from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+    from quantumcomputer.algorithms.shor import read_omega
+    from quantumcomputer.models.circuit import H, X
+    from quantumcomputer.sim.engine import Register, StateVectorEngine
 
     eng = StateVectorEngine(Register(L=t, M=n), dtype=jnp.complex64)
     prep = (X(0),) + tuple(H(q) for q in range(n))
@@ -75,9 +75,9 @@ def test_exact_amplitude_quarter():
 
 def test_estimate_on_mesh_engine():
     """Circuit IR end to end: the same estimate on a 4-device mesh."""
-    from quantumcomputer_tpu.parallel.mesh import build_mesh
-    from quantumcomputer_tpu.parallel.sharded import ShardedStateVectorEngine
-    from quantumcomputer_tpu.sim.engine import Register
+    from quantumcomputer.parallel.mesh import build_mesh
+    from quantumcomputer.parallel.sharded import ShardedStateVectorEngine
+    from quantumcomputer.sim.engine import Register
 
     mesh = build_mesh(4)
     eng = ShardedStateVectorEngine(Register(L=3, M=2), dtype=jnp.complex64, mesh=mesh)

@@ -3,8 +3,8 @@ with validation actually enforced."""
 
 import pytest
 
-from quantumcomputer_tpu.cli import build_parser, main, validate
-from quantumcomputer_tpu.utils import logging as qlog
+from quantumcomputer.cli import build_parser, main, validate
+from quantumcomputer.utils import logging as qlog
 
 
 @pytest.fixture(autouse=True)
@@ -105,8 +105,7 @@ def test_layout_mesh_combination():
 
 
 def test_main_complex32_end_to_end(capsys):
-    """--dtype complex32 factors end-to-end (off-TPU via interpret-mode
-    kernels; the backend override is automatic)."""
+    """--dtype complex32 factors end-to-end (bf16 planes, f32 compute)."""
     rc = main(["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--seed", "0", "--dtype", "complex32", "-v"])
     out = capsys.readouterr().out
     assert rc == 0
@@ -114,7 +113,7 @@ def test_main_complex32_end_to_end(capsys):
 
 
 def test_complex32_rejections():
-    assert main(["-C", "15", "-L", "3", "-M", "4", "--dtype", "complex32", "--backend", "xla"]) == 2
+    assert main(["-C", "15", "-L", "3", "-M", "4", "--dtype", "complex32", "--strict-reference"]) == 2
 
 
 def test_main_complex32_sharded_end_to_end(capsys):
@@ -140,16 +139,14 @@ def test_main_complex32_very_verbose(capsys):
 
 
 def test_semiclassical_complex32_ignores_backend():
-    """--semiclassical has no backend knob: complex32 + the default xla
-    backend must validate (the engine is its own planar program suite)."""
+    """There is no backend knob: complex32 validates on the semiclassical
+    and the full-register path alike, and --backend is not an option."""
     p = build_parser()
     args = p.parse_args(
-        ["-C", "15", "-L", "6", "-M", "4", "--semiclassical",
-         "--dtype", "complex32", "--backend", "xla"]
+        ["-C", "15", "-L", "6", "-M", "4", "--semiclassical", "--dtype", "complex32"]
     )
     assert validate(args) is None
-    # The full-register path still rejects the combination.
-    args2 = p.parse_args(
-        ["-C", "15", "-L", "3", "-M", "4", "--dtype", "complex32", "--backend", "xla"]
-    )
-    assert validate(args2) is not None
+    args2 = p.parse_args(["-C", "15", "-L", "3", "-M", "4", "--dtype", "complex32"])
+    assert validate(args2) is None
+    with pytest.raises(SystemExit):
+        p.parse_args(["-C", "15", "-L", "3", "-M", "4", "--backend", "xla"])

@@ -8,7 +8,7 @@ only with fabricated device objects; this is the end-to-end check whose
 failure mode (wrong mesh order -> butterflies silently on DCN) no
 single-process test can see — and it caught one: distributed CPU devices
 expose a uniform slice_index, which collapsed comm_domain until
-parallel/mesh.py special-cased non-TPU platforms.
+parallel/mesh.py grouped real devices by process_index.
 
 Subprocess-driven: the workers must own their own distributed runtime
 (the pytest process already holds the 8-virtual-device single-process

@@ -2,7 +2,7 @@
 
 The dd engine must match the float64 CPU oracle to <= 1e-12 on full Shor
 circuits — the BASELINE.json north-star parity envelope, achieved with
-TPU-native f32 arithmetic only (no x64 mode anywhere in these tests).
+f32 arithmetic only (no x64 arrays in these tests).
 """
 
 import math
@@ -12,12 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.models import circuit as cir
-from quantumcomputer_tpu.models.shor_circuit import shor_circuit, shor_circuit_reference
-from quantumcomputer_tpu.ops import dd
-from quantumcomputer_tpu.sim import reference as ref
-from quantumcomputer_tpu.sim.dd_engine import DDStateVectorEngine
-from quantumcomputer_tpu.sim.engine import Register
+from quantumcomputer.models import circuit as cir
+from quantumcomputer.models.shor_circuit import shor_circuit, shor_circuit_reference
+from quantumcomputer.ops import dd
+from quantumcomputer.sim import reference as ref
+from quantumcomputer.sim.dd_engine import DDStateVectorEngine
+from quantumcomputer.sim.engine import Register
 from tests.conftest import random_state
 
 
@@ -118,7 +118,7 @@ def test_dd_dense_2q_and_diagonals(rng):
 
 def test_dd_measurement_and_omega():
     """run_and_measure lands only on the four harmonics for (15,7,3,4)."""
-    from quantumcomputer_tpu.algorithms.shor import read_omega
+    from quantumcomputer.algorithms.shor import read_omega
 
     eng = DDStateVectorEngine(Register(L=3, M=4))
     circ = shor_circuit(15, 7, 3, 4)
@@ -131,14 +131,14 @@ def test_dd_measurement_and_omega():
 
 
 def test_dd_shors_algorithm_e2e():
-    from quantumcomputer_tpu.algorithms.shor import shors_algorithm
+    from quantumcomputer.algorithms.shor import shors_algorithm
 
     res = shors_algorithm(C=15, L=3, M=4, forced_trial_int=7, seed=0, dtype="dd64")
     assert res.ok and res.factors == (5, 3)
 
 
 def test_dd_cli():
-    from quantumcomputer_tpu.cli import main
+    from quantumcomputer.cli import main
 
     assert main(["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--seed", "0", "--dtype", "dd64"]) == 0
     assert main(["-C", "15", "-L", "3", "-M", "4", "--dtype", "dd64", "--layout", "m_high"]) == 2
@@ -150,7 +150,7 @@ def test_dd_folded_scalar_programs():
     run_and_measure."""
     import jax
 
-    from quantumcomputer_tpu.models.shor_circuit import shor_circuit
+    from quantumcomputer.models.shor_circuit import shor_circuit
 
     C, a, L, M = 15, 7, 3, 4
     circ = shor_circuit(C, a, L, M)
@@ -163,13 +163,13 @@ def test_dd_folded_scalar_programs():
 
 
 def test_dd_folded_forms_respect_fuse_guard():
-    """run_norm / run_and_measure_index must NOT rebuild a whole-circuit
-    fused program when fuse_program is False (XLA:CPU corrupts dd EFTs in
-    multi-gate fusion contexts): the fallback routes through the per-gate
-    dispatch path, so a LONG circuit keeps dd-grade norm accuracy."""
+    """run_norm / run_and_measure_index never build a whole-circuit program
+    (XLA:CPU corrupts dd EFTs in multi-gate fusion contexts): they route
+    through the per-gate programs, so a LONG circuit keeps dd-grade norm
+    accuracy."""
     import jax
 
-    from quantumcomputer_tpu.models.shor_circuit import shor_circuit_reference
+    from quantumcomputer.models.shor_circuit import shor_circuit_reference
 
     # Gate-for-gate form: 60+ individual gates (the regime where fused CPU
     # programs measurably corrupt EFTs, ~1e-8 amplitude error).
@@ -177,7 +177,7 @@ def test_dd_folded_forms_respect_fuse_guard():
     circ = shor_circuit_reference(C, a, L, M)
     assert len(circ) > 25
     eng = DDStateVectorEngine(Register(L=L, M=M))
-    assert eng.fuse_program is False  # CPU test environment
+    assert not hasattr(eng, "fuse_program")  # one program per gate, always
     assert abs(eng.run_norm(circ) - 1.0) < 1e-12
     idx = eng.run_and_measure_index(circ, jax.random.PRNGKey(3))
     state = eng.run(circ, eng.initial_state())
@@ -192,7 +192,7 @@ def test_dd_nan_checks_wired(capfd):
 
     eng = DDStateVectorEngine(Register(L=2, M=2), nan_checks=True)
     bad = jnp.full((4, 16), jnp.inf, jnp.float32)
-    from quantumcomputer_tpu.models.circuit import H
+    from quantumcomputer.models.circuit import H
 
     out = eng.run((H(0),), bad)
     jax.block_until_ready(out)

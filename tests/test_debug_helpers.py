@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from quantumcomputer_tpu.utils.debug import (
+from quantumcomputer.utils.debug import (
     check_normalisation,
     display_state,
     state_to_kets,

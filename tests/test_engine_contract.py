@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.models.circuit import H, X
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.models.circuit import H, X
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 
 L, M = 3, 3
 N = L + M
@@ -23,15 +23,15 @@ def _engines():
     out = [("xla-c64", StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64))]
     out.append(("xla-c128", StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex128)))
     out.append(
-        ("c32", StateVectorEngine(Register(L=L, M=M), dtype="complex32", backend="pallas"))
+        ("c32", StateVectorEngine(Register(L=L, M=M), dtype="complex32"))
     )
-    from quantumcomputer_tpu.sim.dd_engine import DDStateVectorEngine
+    from quantumcomputer.sim.dd_engine import DDStateVectorEngine
 
     out.append(("dd64", DDStateVectorEngine(Register(L=L, M=M))))
     if len(jax.devices()) >= 4:
-        from quantumcomputer_tpu.parallel.mesh import build_mesh
-        from quantumcomputer_tpu.parallel.sharded import ShardedStateVectorEngine
-        from quantumcomputer_tpu.parallel.sharded_dd import ShardedDDStateVectorEngine
+        from quantumcomputer.parallel.mesh import build_mesh
+        from quantumcomputer.parallel.sharded import ShardedStateVectorEngine
+        from quantumcomputer.parallel.sharded_dd import ShardedDDStateVectorEngine
 
         mesh = build_mesh(num_devices=4)
         out.append(

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import pytest
 
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
-from quantumcomputer_tpu.utils.experiments import norm_deviation_trace, omega_histogram
+from quantumcomputer.sim.engine import Register, StateVectorEngine
+from quantumcomputer.utils.experiments import norm_deviation_trace, omega_histogram
 
 
 def test_table1_histogram_uniform_harmonics():
@@ -36,7 +36,7 @@ def test_fig2_norm_trace():
 
 def test_table1_scripted_chi2():
     """The scripted TABLE I harness: 400 shots, chi-squared vs uniform."""
-    from quantumcomputer_tpu.utils.experiments import table1_experiment
+    from quantumcomputer.utils.experiments import table1_experiment
 
     res = table1_experiment(
         runs=400, seed=11,
@@ -50,7 +50,7 @@ def test_table1_scripted_chi2():
 def test_table1_detects_broken_distribution():
     """The harness must FAIL a biased simulator (sanity of the test itself):
     feed it a histogram far from uniform via a rigged engine."""
-    from quantumcomputer_tpu.utils import experiments as ex
+    from quantumcomputer.utils import experiments as ex
 
     class Rigged:
         layout = "standard"
@@ -69,11 +69,10 @@ def test_table1_detects_broken_distribution():
 def test_fig3_scaling_harness_runs():
     """FIG. 3 harness (Report §IV.C): returns timing rows over both axes;
     tiny ranges on CPU (xla backend) just to exercise the machinery."""
-    from quantumcomputer_tpu.utils.experiments import fig3_scaling
+    from quantumcomputer.utils.experiments import fig3_scaling
 
     rows_L, rows_M = fig3_scaling(
-        L_range=(3, 4), M_range=(5, 6), L_fixed=3, M_fixed=5,
-        backend="xla", iters=1,
+        L_range=(3, 4), M_range=(5, 6), L_fixed=3, M_fixed=5, iters=1,
     )
     assert [(r[0], r[1]) for r in rows_L] == [(3, 5), (4, 5)]
     assert [(r[0], r[1]) for r in rows_M] == [(3, 5), (3, 6)]

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.models import circuit as cir
-from quantumcomputer_tpu.sim import reference as ref
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.models import circuit as cir
+from quantumcomputer.sim import reference as ref
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 
 
 def _random_gate(rng, n, M):
@@ -54,7 +54,7 @@ def _random_gate(rng, n, M):
 def _apply_reference(psi, g):
     """Independent evaluation: only sim/reference strided contractions and
     explicit numpy diagonals — no engine code."""
-    from quantumcomputer_tpu.models.circuit import gate_matrix_1q, gate_matrix_2q
+    from quantumcomputer.models.circuit import gate_matrix_1q, gate_matrix_2q
 
     n = psi.shape[0].bit_length() - 1
     if g.name == "mcphase":
@@ -95,7 +95,7 @@ def test_fuzz_xla_engine_vs_oracle(seed):
 def test_fuzz_sharded_engine_vs_oracle(seed):
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
-    from quantumcomputer_tpu import ShardedStateVectorEngine, build_mesh
+    from quantumcomputer import ShardedStateVectorEngine, build_mesh
 
     rng = np.random.default_rng(100 + seed)
     n = 8
@@ -112,12 +112,12 @@ def test_fuzz_sharded_engine_vs_oracle(seed):
 
 @pytest.mark.parametrize("seed", (0, 1))
 def test_fuzz_pallas_engine_vs_oracle(seed):
-    """The fused Pallas planner on a random generic circuit (interpret
-    mode off-TPU): same amplitudes as the independent evaluation."""
+    """The engine at n=14 (large-state gate forms) on a random generic
+    circuit: same amplitudes as the independent evaluation."""
     rng = np.random.default_rng(200 + seed)
     n = 14
     circ = tuple(_random_gate(rng, n, 0) for _ in range(16))
-    eng = StateVectorEngine(Register(L=n, M=0), dtype=jnp.complex64, backend="pallas")
+    eng = StateVectorEngine(Register(L=n, M=0), dtype=jnp.complex64)
     got = eng.to_numpy(eng.run(circ, eng.zero_state()))
     want = np.zeros(1 << n, np.complex128)
     want[0] = 1.0
@@ -132,8 +132,8 @@ def test_fuzz_sharded_dd_engine_vs_oracle(seed):
     included): random full-vocabulary circuits at f64-grade parity."""
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
-    from quantumcomputer_tpu.parallel.mesh import build_mesh
-    from quantumcomputer_tpu.parallel.sharded_dd import ShardedDDStateVectorEngine
+    from quantumcomputer.parallel.mesh import build_mesh
+    from quantumcomputer.parallel.sharded_dd import ShardedDDStateVectorEngine
 
     rng = np.random.default_rng(300 + seed)
     n = 7
@@ -154,14 +154,14 @@ def test_fuzz_sharded_c32_engine_vs_oracle(seed):
     tolerance): plane-pair collectives + f32 blends for every gate kind."""
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
-    from quantumcomputer_tpu import ShardedStateVectorEngine, build_mesh
+    from quantumcomputer import ShardedStateVectorEngine, build_mesh
 
     rng = np.random.default_rng(400 + seed)
     n = 8
     circ = tuple(_random_gate(rng, n, 0) for _ in range(14))
     mesh = build_mesh(num_devices=4)
     eng = ShardedStateVectorEngine(
-        Register(L=n, M=0), dtype="complex32", mesh=mesh, backend="pallas"
+        Register(L=n, M=0), dtype="complex32", mesh=mesh
     )
     got = eng.to_numpy(eng.run(circ, eng.zero_state()))
     want = np.zeros(1 << n, np.complex128)

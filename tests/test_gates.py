@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.models import circuit as cir
-from quantumcomputer_tpu.ops import gates as xops
-from quantumcomputer_tpu.sim import reference as ref
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine, apply_gate
+from quantumcomputer.models import circuit as cir
+from quantumcomputer.ops import gates as xops
+from quantumcomputer.sim import reference as ref
+from quantumcomputer.sim.engine import Register, StateVectorEngine, apply_gate
 from tests.conftest import random_state
 
 ATOL = 1e-12
@@ -84,7 +84,7 @@ def test_iqft_is_inverse_of_dft():
     probs = np.abs(out) ** 2
     best = int(np.argmax(probs))
     # decode with the bit-reversed convention
-    from quantumcomputer_tpu.algorithms.shor import read_omega
+    from quantumcomputer.algorithms.shor import read_omega
 
     assert probs[best] > 0.999
     assert read_omega(best, L, M) == k / dim_L
@@ -192,14 +192,14 @@ def test_apply_2q_roll_path_matches_einsum(rng):
 
 
 def test_deep_random_circuit_fused_pallas(rng):
-    """200-gate random circuit through the fused pallas backend vs oracle."""
-    from quantumcomputer_tpu.models import circuit as cir
-    from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
-    from quantumcomputer_tpu.sim import statevec as sv
+    """200-gate random circuit through the engine at n=14 vs oracle."""
+    from quantumcomputer.models import circuit as cir
+    from quantumcomputer.sim.engine import Register, StateVectorEngine
+    from quantumcomputer.sim import statevec as sv
 
     n = 14
     psi = random_state(n, rng)
-    eng = StateVectorEngine(Register(L=n, M=0), dtype=jnp.complex64, backend="pallas")
+    eng = StateVectorEngine(Register(L=n, M=0), dtype=jnp.complex64)
     state = sv.from_numpy_complex(psi, jnp.float32)
     names = ["h", "x", "y", "z", "phase", "rx", "ry", "rz"]
     gates = []

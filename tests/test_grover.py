@@ -2,7 +2,7 @@
 
 The reference simulator is Shor-only; these tests pin the rebuild's claim
 to be a general engine — a complete second algorithm runs unchanged on
-the single-chip XLA path, the Pallas backend, and the sharded mesh.
+the single-device engine (complex64 and complex32) and the sharded mesh.
 """
 
 import math
@@ -12,16 +12,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.algorithms.grover import (
+from quantumcomputer.algorithms.grover import (
     grover_circuit,
     grover_iterations,
     grover_search,
 )
-from quantumcomputer_tpu.models.circuit import H, MCPHASE, MCZ, PHASE, RY, dagger_circuit
-from quantumcomputer_tpu.parallel.mesh import build_mesh
-from quantumcomputer_tpu.parallel.sharded import ShardedStateVectorEngine
-from quantumcomputer_tpu.sim import statevec as sv
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.models.circuit import H, MCPHASE, MCZ, PHASE, RY, dagger_circuit
+from quantumcomputer.parallel.mesh import build_mesh
+from quantumcomputer.parallel.sharded import ShardedStateVectorEngine
+from quantumcomputer.sim import statevec as sv
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 
 
 def _rand_state(n, seed):
@@ -93,10 +93,10 @@ def test_grover_iterations():
     assert grover_iterations(8) == 12
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_grover_finds_marked_item(backend):
+@pytest.mark.parametrize("dtype", [jnp.complex64, "complex32"])
+def test_grover_finds_marked_item(dtype):
     n, marked = 8, 173
-    eng = StateVectorEngine(Register(L=n, M=0), dtype=jnp.complex64, backend=backend)
+    eng = StateVectorEngine(Register(L=n, M=0), dtype=dtype)
     idx, p = grover_search(n, marked, jax.random.PRNGKey(0), engine=eng)
     # r=12 iterations at n=8: sin^2((2r+1) asin(2^-4)) ~ 0.9996
     assert p > 0.99

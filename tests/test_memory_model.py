@@ -1,28 +1,24 @@
 """Device-derived memory model (utils/memory.py).
 
-Round 2 hard-coded a 16 GB v5e into the fusion planner and the bench
-sizing (VERDICT r2, weak #3); the budget is now derived from the device's
-reported allocator pool.  These tests fake `memory_stats()` to check the
-derivation, the fallbacks, and the planner predicate — and that the `-V`
-per-phase path in find_period degrades gracefully when two state buffers
-do not fit (VERDICT r2, weak #4).
+The budget is derived from the device's reported allocator pool.  These
+tests fake `memory_stats()` to check the derivation, the error for an
+accelerator that reports nothing, the CPU test budget, and the planner
+predicate — and that the `-V` per-phase path in find_period degrades
+gracefully when two state buffers do not fit.
 """
 
 import jax
 import jax.numpy as jnp
 import pytest
 
-from quantumcomputer_tpu.utils import memory
+from quantumcomputer.utils import memory
 
 
 class _FakeDev:
-    def __init__(self, platform="tpu", stats=None, raises=False):
+    def __init__(self, platform="gpu", stats=None, raises=False):
         self.platform = platform
         self._stats = stats
         self._raises = raises
-        if stats is None and not raises:
-            # no memory_stats attribute at all
-            pass
 
     def memory_stats(self):
         if self._raises:
@@ -30,16 +26,20 @@ class _FakeDev:
         return self._stats
 
 
+# What an H100 80GB HBM3 reports under JAX's default 75% allocator share.
+H100_STATS = {"bytes_limit": 63763120128, "bytes_in_use": 0, "peak_bytes_in_use": 0}
+
+
 @pytest.fixture(autouse=True)
 def _fresh_cache(monkeypatch):
     memory._reset_cache_for_tests()
-    monkeypatch.delenv("QC_TPU_HBM_BYTES", raising=False)
+    monkeypatch.delenv("QC_HBM_BYTES", raising=False)
     yield
     memory._reset_cache_for_tests()
 
 
 def test_env_override_wins(monkeypatch):
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", "123456789")
+    monkeypatch.setenv("QC_HBM_BYTES", "123456789")
     assert memory.device_hbm_budget() == 123456789
     # env also beats an explicit device
     dev = _FakeDev(stats={"bytes_limit": 1 << 40})
@@ -47,43 +47,50 @@ def test_env_override_wins(monkeypatch):
 
 
 def test_budget_scales_with_reported_pool():
-    # A 32 GB part reports a ~2x pool -> the budget roughly doubles, so the
-    # fuse planner and bench sizing scale with the SKU (VERDICT r2 item 3).
-    v5e = _FakeDev(stats={"bytes_limit": int(15.7e9)})
-    v4 = _FakeDev(stats={"bytes_limit": int(2 * 15.7e9)})
-    b_small = memory.device_hbm_budget(v5e)
-    b_big = memory.device_hbm_budget(v4)
+    # A part reporting twice the pool gets twice the budget, so the
+    # planner and bench sizing scale with the device.
+    small = _FakeDev(stats={"bytes_limit": int(40e9)})
+    big = _FakeDev(stats={"bytes_limit": int(80e9)})
+    b_small = memory.device_hbm_budget(small)
+    b_big = memory.device_hbm_budget(big)
     assert b_big == 2 * b_small
-    assert b_small == int(int(15.7e9) * memory._USABLE_FRACTION)
+    assert b_small == int(int(40e9) * memory._USABLE_FRACTION)
 
 
-def test_fallback_when_no_stats():
-    dev = _FakeDev(stats=None)
-    del dev._stats  # simulate missing attribute cleanly
-
-    class NoStats:
-        platform = "tpu"
-
-    assert memory.device_hbm_budget(NoStats()) == memory._V5E_FALLBACK
+def test_gpu_budget_from_bytes_limit():
+    """A GPU's budget is its reported bytes_limit times the usable
+    fraction — about 55 GiB on an H100, not a fixed small-device guess."""
+    budget = memory.device_hbm_budget(_FakeDev(stats=H100_STATS))
+    assert budget == int(H100_STATS["bytes_limit"] * memory._USABLE_FRACTION)
+    assert budget > 50 * (1 << 30)
 
 
-def test_fallback_when_stats_raise():
-    dev = _FakeDev(raises=True)
-    assert memory.device_hbm_budget(dev) == memory._V5E_FALLBACK
+def test_error_when_no_stats():
+    """An accelerator whose memory_stats() is empty is an error, not a
+    silent fallback."""
+    with pytest.raises(RuntimeError, match="no memory limit"):
+        memory.device_hbm_budget(_FakeDev(stats=None))
+    with pytest.raises(RuntimeError, match="no memory limit"):
+        memory.device_hbm_budget(_FakeDev(stats={"bytes_in_use": 0}))
 
 
-def test_cpu_host_uses_v5e_fallback():
-    # CPU/GPU hosts report host RAM; planning against that would let
-    # TPU-sized programs "fit" in tests.  Default-device queries on a
-    # non-TPU platform keep the v5e number.
+def test_error_when_stats_raise():
+    with pytest.raises(RuntimeError, match="no memory stats"):
+        memory.device_hbm_budget(_FakeDev(raises=True))
+
+
+def test_cpu_host_uses_named_test_budget():
+    # The CPU backend has no device memory of its own: the planner uses
+    # the fixed, named CPU test budget.
     assert jax.devices()[0].platform == "cpu"
-    assert memory.device_hbm_budget() == memory._V5E_FALLBACK
+    assert memory.device_hbm_budget() == memory.CPU_TEST_BUDGET
+    assert memory.device_hbm_budget(_FakeDev(platform="cpu", raises=True)) == memory.CPU_TEST_BUDGET
 
 
 def test_two_state_predicate_tracks_budget(monkeypatch):
-    from quantumcomputer_tpu.sim.engine import two_state_programs_fit
+    from quantumcomputer.sim.engine import two_state_programs_fit
 
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", str(1 << 30))
+    monkeypatch.setenv("QC_HBM_BYTES", str(1 << 30))
     # 2 states * 2 planes * 2^n * itemsize <= 1 GiB  ->  n <= 26 at f32
     assert two_state_programs_fit(26, jnp.float32)
     assert not two_state_programs_fit(27, jnp.float32)
@@ -94,16 +101,11 @@ def test_two_state_predicate_tracks_budget(monkeypatch):
 def test_bench_pick_n_scales(monkeypatch):
     import bench
 
-    class TPU:
-        platform = "tpu"
-        device_kind = "TPU v5 lite"
-
-    monkeypatch.setattr(jax, "devices", lambda *a, **k: [TPU()])
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", str(int(14.5 * (1 << 30))))
-    assert bench.pick_n() == 30  # 16 GB v5e budget -> n=30
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", str(int(29 * (1 << 30))))
-    assert bench.pick_n() == 31  # 32 GB part -> n=31, capped by int32 indices
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", str(int(80 * (1 << 30))))
+    monkeypatch.setenv("QC_HBM_BYTES", str(int(14.5 * (1 << 30))))
+    assert bench.pick_n() == 30  # 8 GiB state + headroom
+    monkeypatch.setenv("QC_HBM_BYTES", str(int(29 * (1 << 30))))
+    assert bench.pick_n() == 31  # capped by int32 indices
+    monkeypatch.setenv("QC_HBM_BYTES", str(int(H100_STATS["bytes_limit"] * memory._USABLE_FRACTION)))
     assert bench.pick_n() == 31  # never past the index-width cap
 
 
@@ -112,11 +114,11 @@ def test_very_verbose_uses_folded_prefixes_at_ceiling(monkeypatch, capsys):
     live state buffers); at the memory ceiling find_period must switch to
     reset-folded PREFIX programs (one state live, scalar outputs) and
     still print every phase banner (VERDICT r2, weak #4 / item 5)."""
-    from quantumcomputer_tpu.algorithms.shor import find_period
-    from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
-    from quantumcomputer_tpu.utils import logging as qlog
+    from quantumcomputer.algorithms.shor import find_period
+    from quantumcomputer.sim.engine import Register, StateVectorEngine
+    from quantumcomputer.utils import logging as qlog
 
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", "1")  # nothing fits out-of-place
+    monkeypatch.setenv("QC_HBM_BYTES", "1")  # nothing fits out-of-place
     monkeypatch.setattr(qlog, "_verbose", True)
     monkeypatch.setattr(qlog, "_very_verbose", True)
     eng = StateVectorEngine(Register(L=3, M=4), dtype=jnp.complex64)

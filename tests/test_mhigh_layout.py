@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.algorithms.shor import shors_algorithm
-from quantumcomputer_tpu.models.shor_circuit import shor_circuit_mhigh
-from quantumcomputer_tpu.ops import gates as xops
-from quantumcomputer_tpu.sim import reference as ref
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.algorithms.shor import shors_algorithm
+from quantumcomputer.models.shor_circuit import shor_circuit_mhigh
+from quantumcomputer.ops import gates as xops
+from quantumcomputer.sim import reference as ref
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 from tests.conftest import random_state
 
 
@@ -73,7 +73,7 @@ def test_mhigh_omega_distribution():
     # The omega distribution must be identical to the standard layout's
     # (uniform over the period-4 harmonics for C=15, a=7).
     C, a, L, M = 15, 7, 3, 4
-    from quantumcomputer_tpu.algorithms.shor import read_omega
+    from quantumcomputer.algorithms.shor import read_omega
 
     eng = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex128, layout="m_high")
     state = eng.run(shor_circuit_mhigh(C, a, L, M))
@@ -89,10 +89,10 @@ def test_mhigh_omega_distribution():
 
 
 def test_mhigh_pallas_backend(rng):
-    # n=15 through the fused pallas path in the m-high layout.
+    # n=15 through the engine in the m-high layout.
     C, a, L, M = 33, 7, 9, 6
     want = ref.shor_circuit(C, a, L, M)
-    eng = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, backend="pallas", layout="m_high")
+    eng = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, layout="m_high")
     got_phys = eng.to_numpy(eng.run(shor_circuit_mhigh(C, a, L, M)))
     got = np.empty_like(got_phys)
     idx = np.arange(1 << (L + M))
@@ -104,7 +104,7 @@ def test_mhigh_pallas_backend(rng):
 def test_mhigh_on_mesh_factors():
     """m_high + mesh is supported since round 2 (sharded row-exchange
     oracle); the driver must factor correctly through it."""
-    from quantumcomputer_tpu.parallel.mesh import build_mesh
+    from quantumcomputer.parallel.mesh import build_mesh
 
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple devices")
@@ -115,32 +115,38 @@ def test_mhigh_on_mesh_factors():
     assert res.ok and res.factors == (5, 3)
 
 
-@pytest.mark.parametrize("c_phys", [0, 3, 6, 9, 10])
-def test_pallas_dma_oracle_matches_xla(c_phys, rng):
-    """The manual-DMA row-gather kernel (interpret mode) vs apply_camodc_high,
-    covering both pure-block (control stride >= 1024) and mixed-block paths."""
-    import jax.numpy as jnp
-    from quantumcomputer_tpu.ops import pallas_oracle
+def _mhigh_oracle_reference(psi_phys, C, A, c_phys, L, M):
+    """complex128 reference for camodc_high: map the physical m_high
+    amplitudes to the standard layout, apply the reference gate with the
+    control at logical bit M + c_phys, map back."""
+    idx = np.arange(1 << (L + M))
+    logical = (idx >> L) | ((idx & ((1 << L) - 1)) << M)
+    psi_log = np.empty_like(psi_phys)
+    psi_log[logical] = psi_phys
+    out_log = ref.apply_c_amodc(psi_log, C, A, M + c_phys, M)
+    return out_log[logical]
 
+
+@pytest.mark.parametrize("c_phys", [0, 3, 6, 9, 10])
+def test_mhigh_oracle_matches_reference(c_phys, rng):
+    """apply_camodc_high (whole-row gather + control mask) vs the complex128
+    reference at every control stride class."""
     C, A, M = 33, 29, 6
     L = 11
     n = L + M  # rest = 2048 columns, rows = 64
     psi = random_state(n, rng)
-    re = jnp.asarray(psi.real, jnp.float32)
-    im = jnp.asarray(psi.imag, jnp.float32)
-    ore, oim = pallas_oracle.apply_camodc_high_planar(re, im, C, A, c_phys, M)
-    got = np.asarray(ore) + 1j * np.asarray(oim)
-    want = np.asarray(xops.apply_camodc_high(jnp.asarray(psi), C, A, c_phys, M))
+    got = np.asarray(xops.apply_camodc_high(jnp.asarray(psi, jnp.complex64), C, A, c_phys, M))
+    want = _mhigh_oracle_reference(psi, C, A, c_phys, L, M)
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
 def test_mhigh_pallas_engine_uses_dma_oracle(rng):
-    # Full m-high Shor through the pallas engine (DMA oracle in dispatch).
+    # Full m-high Shor through the engine (row-gather oracle in dispatch).
     C, a, L, M = 33, 7, 9, 6  # rows=64, rest=512
-    from quantumcomputer_tpu.models.shor_circuit import shor_circuit_mhigh
+    from quantumcomputer.models.shor_circuit import shor_circuit_mhigh
 
     want = ref.shor_circuit(C, a, L, M)
-    eng = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, backend="pallas", layout="m_high")
+    eng = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, layout="m_high")
     got_phys = eng.to_numpy(eng.run(shor_circuit_mhigh(C, a, L, M)))
     idx = np.arange(1 << (L + M))
     logical = (idx >> L) | ((idx & ((1 << L) - 1)) << M)
@@ -150,66 +156,41 @@ def test_mhigh_pallas_engine_uses_dma_oracle(rng):
 
 
 @pytest.mark.parametrize("c_phys,n_minus_m", [(13, 14), (13, 16), (14, 15), (15, 16)])
-def test_pallas_perm_oracle_matches_xla(c_phys, n_minus_m, rng):
-    """Half-traffic pure-permutation kernel (control==1 blocks only, in
-    place) vs apply_camodc_high, across block widths 64..128."""
-    import jax.numpy as jnp
-    from quantumcomputer_tpu.ops import pallas_oracle
-
+def test_mhigh_oracle_high_control(c_phys, n_minus_m, rng):
+    """High control bits (stride >= 2^13): the control mask selects whole
+    column blocks; parity vs the complex128 reference."""
     C, A, M = 33, 29, 6
-    n = n_minus_m + M
-    assert pallas_oracle.perm_supported(c_phys, M, n)
-    psi = random_state(n, rng)
-    re = jnp.asarray(psi.real, jnp.float32)
-    im = jnp.asarray(psi.imag, jnp.float32)
-    ore, oim = pallas_oracle.apply_camodc_high_perm_planar(re, im, C, A, c_phys, M)
-    got = np.asarray(ore) + 1j * np.asarray(oim)
-    want = np.asarray(xops.apply_camodc_high(jnp.asarray(psi), C, A, c_phys, M))
+    psi = random_state(n_minus_m + M, rng)
+    got = np.asarray(xops.apply_camodc_high(jnp.asarray(psi, jnp.complex64), C, A, c_phys, M))
+    want = _mhigh_oracle_reference(psi, C, A, c_phys, n_minus_m, M)
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
-def test_perm_oracle_dispatch_threshold():
-    """try_apply_gate routes c>=13 to the perm kernel, lower controls to the
-    full cycle kernel (both differential-tested above)."""
-    from quantumcomputer_tpu.ops import pallas_oracle
-
-    assert not pallas_oracle.perm_supported(12, 6, 20)
-    assert pallas_oracle.perm_supported(13, 6, 20)
-    assert not pallas_oracle.perm_supported(13, 6, 18)  # rest too small
-
-
 @pytest.mark.parametrize("ca,cb,n_minus_m", [(13, 14, 15), (13, 16, 17), (14, 15, 16)])
-def test_pallas_pair_oracle_matches_sequential(ca, cb, n_minus_m, rng):
-    """In-place masked K=2 pair kernel (0.75R+0.75W: mask==0 blocks never
-    move) vs two sequential XLA oracle applies."""
-    from quantumcomputer_tpu.ops import pallas_oracle
-
+def test_mhigh_ladder_pair_matches_sequential(ca, cb, n_minus_m, rng):
+    """A composed K=2 ladder (one gather selected by two control bits) vs
+    two sequential reference oracle applies."""
     C, M = 33, 6
     A1, A2 = 29, 7
-    n = n_minus_m + M
-    assert pallas_oracle.pair_inplace_supported((ca, cb), M, n)
-    psi = random_state(n, rng)
-    re = jnp.asarray(psi.real, jnp.float32)
-    im = jnp.asarray(psi.imag, jnp.float32)
-    ore, oim = pallas_oracle.apply_camodc_pair_inplace_planar(re, im, C, (A1, A2), (ca, cb), M)
-    got = np.asarray(ore) + 1j * np.asarray(oim)
-    want = xops.apply_camodc_high(jnp.asarray(psi), C, A1, ca, M)
-    want = np.asarray(xops.apply_camodc_high(want, C, A2, cb, M))
+    psi = random_state(n_minus_m + M, rng)
+    got = np.asarray(
+        xops.apply_camodc_ladder_high(jnp.asarray(psi, jnp.complex64), C, (A1, A2), (ca, cb), M)
+    )
+    want = _mhigh_oracle_reference(psi, C, A1, ca, n_minus_m, M)
+    want = _mhigh_oracle_reference(want, C, A2, cb, n_minus_m, M)
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
 def test_engine_pairs_oracles_at_memory_ceiling(rng, monkeypatch):
-    """When the out-of-place ladder kernel does not fit (two state buffers),
-    the planner fuses eligible high-control oracle runs into K=2 in-place
-    pairs instead; full-circuit parity vs the XLA backend."""
-    import quantumcomputer_tpu.sim.engine as eng_mod
-    from quantumcomputer_tpu.models.circuit import Gate
+    """A restricted fusion (eligible high controls, K <= 2) rewrites only
+    the eligible pair into a ladder; the engine result matches the
+    unfused circuit."""
+    import quantumcomputer.sim.engine as eng_mod
+    from quantumcomputer.models.circuit import Gate
 
     C, M = 33, 6
     L = 15
     n = L + M
-    # Force the "ladder does not fit" branch at this small n.
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", "1")
     circ = tuple(
         Gate("camodc_high", (c,), meta=(C, pow(29, 1 + (c % 3), C), M)) for c in (13, 14, 12, 11)
     )
@@ -218,8 +199,8 @@ def test_engine_pairs_oracles_at_memory_ceiling(rng, monkeypatch):
         eligible=lambda g: g.qubits[0] >= 13, max_run=2,
     )
     assert [g.name for g in fused] == ["camodc_ladder_high", "camodc_high", "camodc_high"]
-    e_pal = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, backend="pallas", layout="m_high")
-    e_xla = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, backend="xla", layout="m_high")
+    e_pal = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, layout="m_high")
+    e_xla = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, layout="m_high", fuse=False)
     psi = random_state(n, rng)
     s0 = jnp.stack([jnp.asarray(psi.real, jnp.float32), jnp.asarray(psi.imag, jnp.float32)])
     got = e_pal.run(circ, s0 + 0)
@@ -227,41 +208,28 @@ def test_engine_pairs_oracles_at_memory_ceiling(rng, monkeypatch):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-5)
 
 
-def test_pair_member_threshold_bytes():
-    from quantumcomputer_tpu.ops import pallas_oracle
-
-    assert pallas_oracle.pair_member_supported(13, 6, 21, itemsize=4)
-    assert not pallas_oracle.pair_member_supported(12, 6, 21, itemsize=4)
-    assert not pallas_oracle.pair_member_supported(13, 6, 21, itemsize=2)
-    assert pallas_oracle.pair_member_supported(14, 6, 22, itemsize=2)
-    assert not pallas_oracle.pair_inplace_supported((13, 13), 6, 21)  # distinct controls
-
-
-def test_pallas_perm_and_pair_oracle_bf16(rng):
-    """bf16 planes through the in-place masked kernels (perm single +
-    K=2 pair): pure data movement, so bf16 must be EXACT vs the f32
-    result rounded to bf16."""
-    from quantumcomputer_tpu.ops import pallas_oracle
+def test_mhigh_oracle_complex32_exact(rng):
+    """bf16 planes through the complex32 engine's oracle (single gate and a
+    K=2 ladder): pure data movement, so the result must be EXACT vs the
+    f32 result on the bf16-rounded input."""
+    from quantumcomputer.models.circuit import Gate
 
     C, M = 33, 6
-    n = 17 + M  # rest = 2^17: bf16 perm threshold needs c >= 14
+    L = 17
+    n = L + M
     psi = random_state(n, rng)
-    re32 = jnp.asarray(psi.real, jnp.float32)
-    im32 = jnp.asarray(psi.imag, jnp.float32)
-    re16 = re32.astype(jnp.bfloat16)
-    im16 = im32.astype(jnp.bfloat16)
+    s16 = jnp.stack([jnp.asarray(psi.real), jnp.asarray(psi.imag)]).astype(jnp.bfloat16)
+    z32 = jnp.asarray(np.asarray(s16[0], np.float32) + 1j * np.asarray(s16[1], np.float32))
+    eng = StateVectorEngine(Register(L=L, M=M), dtype="complex32", layout="m_high", fuse=False)
 
-    assert pallas_oracle.perm_supported(14, M, n, itemsize=2)
-    o16 = pallas_oracle.apply_camodc_high_perm_planar(re16, im16, C, 29, 14, M)
-    want = xops.apply_camodc_high(
-        jnp.asarray(np.asarray(re16.astype(jnp.float32)) + 1j * np.asarray(im16.astype(jnp.float32))),
-        C, 29, 14, M,
-    )
-    got = np.asarray(o16[0].astype(jnp.float32)) + 1j * np.asarray(o16[1].astype(jnp.float32))
-    np.testing.assert_array_equal(got, np.asarray(want))
+    single = (Gate("camodc_high", (14,), meta=(C, 29, M)),)
+    got = eng.run(single, s16 + 0)
+    want = xops.apply_camodc_high(z32, C, 29, 14, M)
+    np.testing.assert_array_equal(np.asarray(got[0], np.float32), np.asarray(jnp.real(want)))
+    np.testing.assert_array_equal(np.asarray(got[1], np.float32), np.asarray(jnp.imag(want)))
 
-    assert pallas_oracle.pair_inplace_supported((14, 15), M, n, itemsize=2)
-    p16 = pallas_oracle.apply_camodc_pair_inplace_planar(re16, im16, C, (29, 7), (14, 15), M)
-    want2 = xops.apply_camodc_high(jnp.asarray(np.asarray(want)), C, 7, 15, M)
-    got2 = np.asarray(p16[0].astype(jnp.float32)) + 1j * np.asarray(p16[1].astype(jnp.float32))
-    np.testing.assert_array_equal(got2, np.asarray(want2))
+    ladder = (Gate("camodc_ladder_high", (14, 15), meta=(C, M, 29, 7)),)
+    got2 = eng.run(ladder, s16 + 0)
+    want2 = xops.apply_camodc_high(want, C, 7, 15, M)
+    np.testing.assert_array_equal(np.asarray(got2[0], np.float32), np.asarray(jnp.real(want2)))
+    np.testing.assert_array_equal(np.asarray(got2[1], np.float32), np.asarray(jnp.imag(want2)))

@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.ops.gates import modmul_inverse_permutation
-from quantumcomputer_tpu.ops.modperm import (
+from quantumcomputer.ops.gates import modmul_inverse_permutation
+from quantumcomputer.ops.modperm import (
     apply_stride_permute,
     plan_stride_permute,
     rational_split,
@@ -209,13 +209,9 @@ def test_bf16_and_flat_shapes():
 
 
 @pytest.mark.parametrize("M", [14, 16])
-def test_fuzz_parity_kernel_path(M, monkeypatch):
-    """The TPU realization — Pallas chunk-gather legs over padded tiled
-    transposes — forced on CPU via QC_MODPERM_KERNEL=1 (interpret mode).
-    Walks multipliers until several genuinely plan (small M refuses
-    most); parity must be exact through the padded layouts and the blend
-    kernel's offset contract."""
-    monkeypatch.setenv("QC_MODPERM_KERNEL", "1")
+def test_fuzz_parity_planned_multipliers(M):
+    """Walks multipliers until several genuinely plan (small M refuses
+    most); parity must be exact through both legs and the negation."""
     C = (1 << M) - 3
     planned = 0
     for a in range(3, 4000, 2):
@@ -227,135 +223,70 @@ def test_fuzz_parity_kernel_path(M, monkeypatch):
         planned += _check(C, a_inv, M, require_plan=False)
         if planned >= 3:
             break
-    assert planned >= 3  # the kernel path must actually be exercised
+    assert planned >= 3  # the structured path must actually be exercised
 
 
-def test_deal_leg_kernel_junk_lane_view(monkeypatch):
-    """The kernel deal leg's PAD-FREE overlapping row view (round 5):
-    each w2 row carries LANE junk lanes in front of its data so the wrap
-    slice start (LANE + t2)*pitch - istar stays in bounds at t2 = 0 —
-    the chunk straddling C always has t2 = 0 (m = u-1 there), and its
-    wrap lanes are all >= C, so junk must flow only into discarded
-    output.  Direct _deal_leg parity against the element map, forced
-    through the kernel path, at shapes where C % W != 0 and the plan
-    window guarantees u >= LANE."""
-    monkeypatch.setenv("QC_MODPERM_KERNEL", "1")
-    from quantumcomputer_tpu.ops.modperm import _deal_leg
-
-    for M, C, u, W in (
-        (16, 65533, 509, 128),    # C prime-ish, straddling chunk wrap
+@pytest.mark.parametrize(
+    "M,C,u,W",
+    [
+        (16, 65533, 509, 128),    # straddling chunk wrap
         (16, 65280, 131, 256),    # C % W == 0: no straddle, tail exact
         (17, 131063, 257, 256),   # wider rows, odd u
-        (15, 32765, 129, 128),    # smallest kernel-legal u
-    ):
-        assert u >= 128 and W * u <= C <= (1 << M)
-        rng = np.random.default_rng(u)
-        x = rng.standard_normal((2, 1 << M)).astype(np.float32)
-        got = np.asarray(_deal_leg(jnp.asarray(x), C, u, M, W))
-        j = np.arange(1 << M)
-        src = np.where(j < C, (u * j) % C, j)
-        np.testing.assert_array_equal(got, x[:, src], err_msg=f"u={u} C={C}")
-    """Collect rows wider than the VMEM cap split into Wc-wide chunks;
-    shrink the cap so the split path runs at test scale.
+        (15, 32765, 129, 128),
+        (12, 4093, 3, 1024),      # tiny u, wide chunks
+    ],
+)
+def test_deal_leg_matches_element_map(M, C, u, W):
+    """_deal_leg parity against the element map out[j] = x[(u*j) mod C]
+    (j < C), identity above, at shapes where C % W varies."""
+    from quantumcomputer.ops.modperm import _deal_leg
 
-    Sweeps ALL planning multipliers until the set includes a padded row
-    width Qpr NOT divisible by the cap — the round-4 regression class:
-    the shipped code recomputed Wc = min(Qpr, cap) after the split had
-    chosen _ROW_SPLIT_W, so K = Qpr // Wc floored and the reshape threw
-    (BENCH_r04's M=28 v=1543 Qpr=196608 TypeError; at this scale the
-    v=43, Qpv=381 -> Qpr=384 candidate reproduces it).  Round 4's
-    version stopped at the FIRST candidate, whose Qpr=512 happened to
-    divide the clobbered width."""
-    from quantumcomputer_tpu.ops import modperm
+    assert W * u <= C <= (1 << M)
+    rng = np.random.default_rng(u)
+    x = rng.standard_normal((2, 1 << M)).astype(np.float32)
+    got = np.asarray(_deal_leg(jnp.asarray(x), C, u, M, W))
+    j = np.arange(1 << M)
+    src = np.where(j < C, (u * j) % C, j)
+    np.testing.assert_array_equal(got, x[:, src], err_msg=f"u={u} C={C}")
 
-    monkeypatch.setenv("QC_MODPERM_KERNEL", "1")
-    monkeypatch.setattr(modperm, "_ROW_W_CAP", 256)
-    monkeypatch.setattr(modperm, "_ROW_SPLIT_W", 128)
+
+@pytest.mark.parametrize("v", [3, 43, 127, 128, 129, 899])
+def test_collect_leg_matches_element_map(v):
+    """_collect_leg parity against out[j] = x[(v^-1 * j) mod C] (j < C),
+    identity above — row widths Qpv = ceil(C/v) both lane-aligned and
+    not (the cyclic extension covers the rounding surplus)."""
+    from quantumcomputer.ops.modperm import _collect_leg
+
     M = 14
     C = (1 << M) - 3
-    split_plans = nondivisible = 0
-    for a in range(3, 4000, 2):
-        if math.gcd(a, C) != 1:
-            continue
-        a_inv = pow(a, -1, C)
-        plan = plan_stride_permute(C, a_inv, M)
-        if plan is None or plan.v <= 1:
-            continue
-        Qpr_unsplit = -((-((C - 1) // plan.v + 1)) // 128) * 128
-        if Qpr_unsplit <= 256:
-            continue  # no split at this cap
-        split_plans += 1
-        if Qpr_unsplit % 256 != 0:
-            nondivisible += 1
-        _check(C, a_inv, M, require_plan=True)
-        if split_plans >= 8 and nondivisible >= 1:
-            break
-    assert split_plans >= 6, (split_plans, nondivisible)
-    assert nondivisible >= 1, "sweep never hit the non-divisible-Qpr class"
+    if math.gcd(v, C) != 1:
+        pytest.skip("v shares a factor with C")
+    vinv = pow(v, -1, C)
+    rng = np.random.default_rng(v)
+    x = rng.standard_normal((2, 1 << M)).astype(np.float32)
+    got = np.asarray(_collect_leg(jnp.asarray(x), C, v, vinv, M))
+    j = np.arange(1 << M)
+    src = np.where(j < C, (vinv * j) % C, j)
+    np.testing.assert_array_equal(got, x[:, src], err_msg=f"v={v}")
 
 
-def test_collect_chunking_invariants(monkeypatch):
-    """The collect-leg chunking triple has ONE source of truth
-    (modperm.collect_chunking); its invariants hold over the (C, v)
-    space in both split and non-split regimes."""
-    from quantumcomputer_tpu.ops import modperm
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("B", [1, 2])
+def test_legs_exact_for_dtype_and_batch(dtype, B):
+    """Both legs and the negation are pure data movement: exact for every
+    dtype and for leading batch dims (one plane or both)."""
+    from quantumcomputer.ops.modperm import _collect_leg, _deal_leg, _negate_mod
 
-    monkeypatch.setattr(modperm, "_ROW_W_CAP", 256)
-    monkeypatch.setattr(modperm, "_ROW_SPLIT_W", 128)
-    rng = np.random.default_rng(5)
-    for _ in range(500):
-        C = int(rng.integers(1 << 10, 1 << 20)) | 1
-        v = int(rng.integers(1, 2048))
-        Qpv = (C - 1) // v + 1
-        for use_kernel in (False, True):
-            Wc, Qpr, K = modperm.collect_chunking(C, v, use_kernel)
-            assert Qpr % Wc == 0 and K * Wc == Qpr
-            assert Qpr >= Qpv and Qpr % 128 == 0
-            assert Qpr - Qpv < max(Wc, 128)
-            if use_kernel and -(-Qpv // 128) * 128 > 256:
-                assert Wc == 128 and K == Qpr // 128
-            else:
-                assert K == 1 and Wc == Qpr
-
-
-def test_collect_chunking_bench_r04_row():
-    """Production caps, the exact BENCH_r04 crash configuration:
-    M=28, C=2^28-3, v=1543 — padded row width > cap and not a multiple
-    of it.  The pre-fix code computed K = Qpr // min(Qpr, cap) = 1 here
-    and threw reshaping (1, 1543, 131072) -> (1, 1543, 196608)."""
-    from quantumcomputer_tpu.ops.modperm import collect_chunking
-
-    C, v = (1 << 28) - 3, 1543
-    Wc, Qpr, K = collect_chunking(C, v, True)
-    Qpv = (C - 1) // v + 1
-    # Adaptive halving picks the candidate minimizing the Qpv roundup:
-    # 4096 rounds 173970 to 176128 (+1.2%) vs 32768's 196608 (+13%).
-    assert Wc == 4096 and Qpr == 176128
-    assert Qpr == -(-Qpv // Wc) * Wc == K * Wc and K > 1
-    assert Qpr % 131072 != 0  # the class round 4's test never reached
-
-
-def test_row_compact_exact_rows_last_chunk():
-    """ADVICE r4 (high): when Qpv is an exact multiple of 128 (rows ==
-    Qpv, zero pad rows) a last-row chunk with t0 > vpad - Wt had its
-    straight-slice start clamp-SHIFTED, silently corrupting live output
-    positions < C.  v=899, rows=128: the chunk at f0=114688 has q0=127,
-    t0=515 > vpad - Wt = 128 — pre-fix, lanes 0..383 of that chunk (all
-    live) read from the wrong offset."""
-    from quantumcomputer_tpu.ops.modperm import _row_compact
-
-    v, rows, dim = 899, 128, 1 << 17
-    vpad = 1024
-    # One slack row past the live region, NaN-filled: _row_compact's
-    # contract (production: _tr extra_rows, contents undefined) — the
-    # kernel may read it only into lanes the blend discards.
-    w2 = np.full((1, rows + 1, vpad), np.nan, np.float32)
-    w2[0, :rows] = -1.0
-    q = np.arange(rows)[:, None]
-    t = np.arange(v)[None, :]
-    w2[0, :rows, :v] = (q * v + t).astype(np.float32)
-    flat = np.asarray(_row_compact(jnp.asarray(w2), v, dim))
-    live = rows * v  # 115072: every position below is real data
-    np.testing.assert_array_equal(
-        flat[0, :live], np.arange(live, dtype=np.float32)
-    )
+    M, C = 13, 8189
+    rng = np.random.default_rng(B)
+    x = jnp.asarray(rng.standard_normal((B, 1 << M)), dtype)
+    xs = np.asarray(x.astype(jnp.float32))
+    j = np.arange(1 << M)
+    vinv = pow(61, -1, C)
+    for got, src in (
+        (_deal_leg(x, C, 67, M, 64), np.where(j < C, (67 * j) % C, j)),
+        (_collect_leg(x, C, 61, vinv, M), np.where(j < C, (vinv * j) % C, j)),
+        (_negate_mod(x, C), np.where(j < C, (-j) % C, j)),
+    ):
+        assert got.dtype == x.dtype and got.shape == x.shape
+        np.testing.assert_array_equal(np.asarray(got.astype(jnp.float32)), xs[:, src])

@@ -9,8 +9,8 @@ import math
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.algorithms import _native
-from quantumcomputer_tpu.algorithms import number_theory as nt
+from quantumcomputer.algorithms import _native
+from quantumcomputer.algorithms import number_theory as nt
 
 pytestmark = pytest.mark.skipif(not _native.available(), reason="native library unavailable")
 
@@ -63,8 +63,8 @@ def test_mult_order_matches():
 
 
 def test_cycle_schedule_native_matches_python():
-    from quantumcomputer_tpu.algorithms import _native
-    from quantumcomputer_tpu.ops.gates import modmul_inverse_permutation
+    from quantumcomputer.algorithms import _native
+    from quantumcomputer.ops.gates import modmul_inverse_permutation
 
     if not _native.available():
         pytest.skip("native library unavailable")
@@ -73,7 +73,7 @@ def test_cycle_schedule_native_matches_python():
     for C, A, M in [(15, 7, 4), (251, 13, 8), (8191, 3, 13)]:
         ginv = np.asarray(modmul_inverse_permutation(C, A, M), np.int32)
         o1, s1, k1 = _native.cycle_schedule(ginv)
-        # Python reference walk (the fallback path in pallas_oracle)
+        # Python reference walk of the same cycle schedule
         rows = len(ginv)
         visited = np.zeros(rows, bool)
         o2 = np.empty(rows, np.int32); s2 = np.empty(rows, np.int32); k2 = np.empty(rows, np.int32)
@@ -98,7 +98,7 @@ def test_cycle_schedule_native_matches_python():
 
 
 def test_combo_multipliers_native_matches_python():
-    from quantumcomputer_tpu.algorithms import _native
+    from quantumcomputer.algorithms import _native
 
     if not _native.available():
         pytest.skip("native library unavailable")

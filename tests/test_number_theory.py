@@ -7,7 +7,7 @@ import math
 
 import pytest
 
-from quantumcomputer_tpu.algorithms import number_theory as nt
+from quantumcomputer.algorithms import number_theory as nt
 
 
 def test_gcd_matches_math():

@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quantumcomputer_tpu.algorithms.shor import read_omega
-from quantumcomputer_tpu.models.shor_circuit import shor_circuit
-from quantumcomputer_tpu.ops import gates as xops
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.algorithms.shor import read_omega
+from quantumcomputer.models.shor_circuit import shor_circuit
+from quantumcomputer.ops import gates as xops
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 
 N_SAMPLES = 400
 
@@ -56,7 +56,7 @@ def test_measured_m_register_consistency():
     be exactly the orbit {a^x mod C} = {1, 7, 4, 13} for a=7, C=15."""
     C, a, L, M = 15, 7, 3, 4
     eng = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex128)
-    from quantumcomputer_tpu.models.shor_circuit import hadamard_layer, modexp_ladder
+    from quantumcomputer.models.shor_circuit import hadamard_layer, modexp_ladder
 
     circ = tuple(hadamard_layer(L, M) + modexp_ladder(C, a, L, M))
     state = eng.to_numpy(eng.run(circ))

@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.algorithms.oracle_algorithms import (
+from quantumcomputer.algorithms.oracle_algorithms import (
     bernstein_vazirani,
     bv_circuit,
     bv_oracle,
     deutsch_jozsa,
 )
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 
 
 @pytest.mark.parametrize("seed", range(5))
@@ -49,7 +49,7 @@ def test_deutsch_jozsa_constant_vs_balanced():
 def test_bv_on_sharded_engine():
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
-    from quantumcomputer_tpu import ShardedStateVectorEngine, build_mesh
+    from quantumcomputer import ShardedStateVectorEngine, build_mesh
 
     n, s = 8, 0b11001010  # hidden bits straddle global qubits
     mesh = build_mesh(num_devices=4)
@@ -59,7 +59,7 @@ def test_bv_on_sharded_engine():
 
 def test_bv_on_pallas_engine():
     n, s = 14, 0b10011011001101
-    eng = StateVectorEngine(Register(L=n, M=0), dtype=jnp.complex64, backend="pallas")
+    eng = StateVectorEngine(Register(L=n, M=0), dtype=jnp.complex64)
     assert bernstein_vazirani(n, s, jax.random.PRNGKey(2), engine=eng) == s
 
 
@@ -67,10 +67,10 @@ def test_bv_dtype_matrix():
     """BV's determinism contract holds at every storage precision: bf16
     (complex32) and the dd64 double-float engine return the exact hidden
     string (amplitudes are exactly 0 or 1 — no rounding can flip them)."""
-    from quantumcomputer_tpu.sim.dd_engine import DDStateVectorEngine
+    from quantumcomputer.sim.dd_engine import DDStateVectorEngine
 
     n, s = 10, 0b1100110101
-    eng32 = StateVectorEngine(Register(L=n, M=0), dtype="complex32", backend="pallas")
+    eng32 = StateVectorEngine(Register(L=n, M=0), dtype="complex32")
     assert bernstein_vazirani(n, s, jax.random.PRNGKey(4), engine=eng32) == s
     eng_dd = DDStateVectorEngine(Register(L=n, M=0))
     assert bernstein_vazirani(n, s, jax.random.PRNGKey(5), engine=eng_dd) == s

@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.models import circuit as cir
-from quantumcomputer_tpu.models.shor_circuit import shor_circuit, shor_circuit_mhigh
-from quantumcomputer_tpu.ops import gates as xops
-from quantumcomputer_tpu.sim import reference as ref
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine, fuse_oracle_ladders
+from quantumcomputer.models import circuit as cir
+from quantumcomputer.models.shor_circuit import shor_circuit, shor_circuit_mhigh
+from quantumcomputer.ops import gates as xops
+from quantumcomputer.sim import reference as ref
+from quantumcomputer.sim.engine import Register, StateVectorEngine, fuse_oracle_ladders
 from tests.conftest import random_state
 
 
@@ -81,8 +81,8 @@ def test_ladder_run_length_capped():
     """Runs longer than MAX_LADDER_RUN split: the 2^K combo table (and the
     DMA kernel's SMEM budget) cap at K=8; an unbounded run would fall back
     to the catastrophically slow XLA gather ladder."""
-    from quantumcomputer_tpu.models.circuit import Gate
-    from quantumcomputer_tpu.sim.engine import MAX_LADDER_RUN
+    from quantumcomputer.models.circuit import Gate
+    from quantumcomputer.sim.engine import MAX_LADDER_RUN
 
     C, M = 251, 8
     gates = tuple(
@@ -95,20 +95,16 @@ def test_ladder_run_length_capped():
     assert sum(len(g.qubits) for g in ladders) == 12
 
 
-def test_ladder_dma_kernel_interpret(rng):
-    """The composed-run DMA kernel (interpret mode) vs sequential oracles."""
-    from quantumcomputer_tpu.ops import pallas_oracle as po
-
+@pytest.mark.parametrize("controls", [(11, 12), (0, 12), (3, 7)])
+def test_composed_ladder_high_matches_sequential(controls, rng):
+    """The composed-run gather (one pass, multiplier selected by the control
+    bits) vs sequential oracles, for high, mixed and low control bits."""
     C, M, n = 15, 4, 17
-    controls = (11, 12)
     A_list = (7, 4)
     psi = random_state(n, rng)
-    re = jnp.asarray(psi.real, jnp.float32)
-    im = jnp.asarray(psi.imag, jnp.float32)
-    assert po.ladder_high_supported(controls, M, n)
-    assert not po.ladder_high_supported((10, 12), M, n)  # low control: refuse
-    ore, oim = po.apply_camodc_ladder_high_planar(re, im, C, A_list, controls, M)
-    got = np.asarray(ore) + 1j * np.asarray(oim)
+    got = np.asarray(
+        xops.apply_camodc_ladder_high(jnp.asarray(psi, jnp.complex64), C, A_list, controls, M)
+    )
     want = jnp.asarray(psi)
     for A, c in zip(A_list, controls):
         want = xops.apply_camodc_high(want, C, A, c, M)
@@ -116,21 +112,21 @@ def test_ladder_dma_kernel_interpret(rng):
 
 
 def test_pallas_engine_partial_ladder_fusion(rng):
-    """Through the pallas engine at n=16 m_high: only the high-control
-    suffix of the oracle run fuses; the result must match fuse=False."""
+    """Through the engine at n=16 m_high with fusion on: the result must
+    match fuse=False."""
     C, a, L, M = 8191, 3, 3, 13
     # L=3 -> controls 0,1,2: all < 10, nothing fuses; extend with manual
     # high-control oracles to exercise the mixed policy.
-    from quantumcomputer_tpu.models.circuit import Gate
+    from quantumcomputer.models.circuit import Gate
 
     n = L + M
     gates = list(shor_circuit_mhigh(C, a, L, M))
     psi = random_state(n, rng)
-    from quantumcomputer_tpu.sim import statevec as sv
+    from quantumcomputer.sim import statevec as sv
 
     state = sv.from_numpy_complex(psi, jnp.float32)
-    e_on = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, backend="pallas", layout="m_high", fuse=True)
-    e_off = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, backend="pallas", layout="m_high", fuse=False)
+    e_on = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, layout="m_high", fuse=True)
+    e_off = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, layout="m_high", fuse=False)
     a_ = e_on.to_numpy(e_on.run(tuple(gates), state))
     b_ = e_off.to_numpy(e_off.run(tuple(gates), sv.from_numpy_complex(psi, jnp.float32)))
     np.testing.assert_allclose(a_, b_, atol=3e-5)
@@ -169,8 +165,8 @@ def test_undersized_modulus_never_fuses():
     """C > 2^m_reg must not compose into a ladder: the DMA ladder kernel
     indexes rows by (combo*j) % C, which would read past the state — the
     per-gate path raises a clean ValueError instead."""
-    from quantumcomputer_tpu.models.circuit import Gate
-    from quantumcomputer_tpu.sim.engine import fuse_oracle_ladders
+    from quantumcomputer.models.circuit import Gate
+    from quantumcomputer.sim.engine import fuse_oracle_ladders
 
     bad = tuple(
         Gate("camodc_high", (q,), meta=(300, A, 8)) for q, A in ((0, 7), (1, 49))

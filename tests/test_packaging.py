@@ -1,14 +1,14 @@
 """Installed-layout packaging contracts (pyproject.toml / setup.py).
 
 The native classical layer is a plain ctypes shared library: wheels carry
-it as quantumcomputer_tpu/libqc_classical.so (built by setup.py's
+it as quantumcomputer/libqc_classical.so (built by setup.py's
 BuildSharedLib), the dev checkout keeps native/libqc_classical.so.  The
 loader must prefer a package-local library and fall back to the dev path.
 """
 
 import os
 
-from quantumcomputer_tpu.algorithms import _native
+from quantumcomputer.algorithms import _native
 
 
 def test_find_lib_prefers_package_local(tmp_path, monkeypatch):
@@ -36,20 +36,20 @@ def test_find_lib_none_when_absent(tmp_path, monkeypatch):
 def test_pyproject_declares_entry_point():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     text = open(os.path.join(root, "pyproject.toml")).read()
-    assert 'qc-tpu = "quantumcomputer_tpu.cli:main"' in text
+    assert 'qc-sim = "quantumcomputer.cli:main"' in text
     assert 'libqc_classical*.so' in text  # wheel ships the ctypes library
 
 
 def test_version_single_source():
-    import quantumcomputer_tpu
+    import quantumcomputer
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     text = open(os.path.join(root, "pyproject.toml")).read()
-    assert f'version = "{quantumcomputer_tpu.__version__}"' in text
+    assert f'version = "{quantumcomputer.__version__}"' in text
 
 
 def test_top_level_exports():
-    import quantumcomputer_tpu as q
+    import quantumcomputer as q
 
     for name in (
         "Register", "StateVectorEngine", "ShardedStateVectorEngine",

@@ -14,14 +14,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.models.circuit import Gate
-from quantumcomputer_tpu.ops.gates import modmul_inverse_permutation
-from quantumcomputer_tpu.parallel.mesh import build_mesh
-from quantumcomputer_tpu.parallel.sharded import (
+from quantumcomputer.models.circuit import Gate
+from quantumcomputer.ops.gates import modmul_inverse_permutation
+from quantumcomputer.parallel.mesh import build_mesh
+from quantumcomputer.parallel.sharded import (
     ShardedStateVectorEngine,
     _packed_exchange_schedule,
 )
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 
@@ -64,7 +64,7 @@ def test_mesh_oracle_collectives_are_packed():
     operands are packed row buffers summing to < one shard — NOT the
     (D-1) full-shard rotations of the old form — and exactly one
     full-shard row gather remains (the local-source pass)."""
-    from quantumcomputer_tpu.utils.profiling import collective_stats
+    from quantumcomputer.utils.profiling import collective_stats
 
     L, M, d = 6, 6, 3
     C, atox = 33, 29
@@ -85,7 +85,7 @@ def test_mesh_oracle_collectives_are_packed():
 
 def test_packed_oracle_parity_1e12():
     """Mesh-vs-single parity at complex128 through the packed exchange."""
-    from quantumcomputer_tpu.models.shor_circuit import shor_circuit_mhigh
+    from quantumcomputer.models.shor_circuit import shor_circuit_mhigh
 
     C, a, L, M = 33, 29, 6, 6
     circ = shor_circuit_mhigh(C, a, L, M)
@@ -107,7 +107,7 @@ def test_packed_oracle_parity_1e12():
 def test_slot_routes_reconstruct_permutation(C, a, L, m_reg, d):
     """Replaying each slot's packed route tables on host must reproduce
     that slot's inverse permutation exactly."""
-    from quantumcomputer_tpu.parallel.sharded import packed_slot_routes
+    from quantumcomputer.parallel.sharded import packed_slot_routes
 
     D = 1 << d
     R = (1 << m_reg) >> d
@@ -131,7 +131,7 @@ def test_slot_routes_reconstruct_permutation(C, a, L, m_reg, d):
 def test_slot_routes_shapes_share_kpad():
     """All slots share ONE power-of-two K_pad (the route-class key), and
     the padded volume stays near the packed ideal (< 2 shards total)."""
-    from quantumcomputer_tpu.parallel.sharded import packed_slot_routes
+    from quantumcomputer.parallel.sharded import packed_slot_routes
 
     # Realistic shard geometry (R >> D): padding is amortized there; tiny
     # shards (R ~ D) pay a larger padding factor but move trivial bytes.
@@ -149,12 +149,12 @@ def test_slot_packed_template_parity():
     """Template trial program WITH routes == rotation fallback == static
     circuit, for the measured index at fixed key (the values are moved,
     never recomputed, so all three agree exactly)."""
-    from quantumcomputer_tpu.models.shor_circuit import (
+    from quantumcomputer.models.shor_circuit import (
         shor_circuit_mhigh,
         shor_circuit_template,
         shor_oracle_tables,
     )
-    from quantumcomputer_tpu.parallel.sharded import packed_slot_routes
+    from quantumcomputer.parallel.sharded import packed_slot_routes
 
     C, a, L, M, d = 33, 29, 6, 6, 3
     mesh = build_mesh(num_devices=1 << d)
@@ -175,11 +175,11 @@ def test_slot_packed_template_parity():
 def test_slot_packed_route_class_reuse():
     """Two trial integers in the same K_pad bucket must reuse ONE compiled
     template program (the compile-once property survives the packed form)."""
-    from quantumcomputer_tpu.models.shor_circuit import (
+    from quantumcomputer.models.shor_circuit import (
         shor_circuit_template,
         shor_oracle_tables,
     )
-    from quantumcomputer_tpu.parallel.sharded import packed_slot_routes
+    from quantumcomputer.parallel.sharded import packed_slot_routes
 
     C, L, M, d = 33, 4, 6, 2
     mesh = build_mesh(num_devices=1 << d)
@@ -203,13 +203,13 @@ def test_slot_packed_collectives_are_packed():
     """Lowered-program contract: with routes bound, every collective
     operand is a K_pad-row packed buffer — total shipped rows ~(D-1)*K_pad,
     a fraction of the rotation fallback's (D-1) full shards."""
-    from quantumcomputer_tpu.utils.profiling import collective_stats
+    from quantumcomputer.utils.profiling import collective_stats
 
-    from quantumcomputer_tpu.models.shor_circuit import (
+    from quantumcomputer.models.shor_circuit import (
         shor_circuit_template,
         shor_oracle_tables,
     )
-    from quantumcomputer_tpu.parallel.sharded import packed_slot_routes
+    from quantumcomputer.parallel.sharded import packed_slot_routes
 
     C, a, L, M, d = 33, 29, 1, 6, 3
     D, R = 1 << d, (1 << M) >> d
@@ -222,7 +222,7 @@ def test_slot_packed_collectives_are_packed():
 
     def lowered_rows(rts):
         n, m_eff = eng.register.n, eng.m_eff
-        from quantumcomputer_tpu.parallel.sharded import AXIS, apply_gate_sharded
+        from quantumcomputer.parallel.sharded import AXIS, apply_gate_sharded
 
         def body(tabs, rt):
             import jax.numpy as jnp2
@@ -232,7 +232,7 @@ def test_slot_packed_collectives_are_packed():
             ls = (1 << n) // D
             z = (lax2.iota(jnp.int32, ls) == 1).astype(jnp.complex64)
             return apply_gate_sharded(
-                z, template[0], n=n, M=m_eff, d=d, me=me, backend=eng.backend,
+                z, template[0], n=n, M=m_eff, d=d, me=me,
                 tables=tabs, routes=rt,
             )
 
@@ -257,7 +257,7 @@ def test_slot_packed_collectives_are_packed():
 def test_slot_packed_trial_loop_e2e():
     """shors_algorithm on the m_high mesh (unforced trial loop) routes
     through the packed template and still factors."""
-    from quantumcomputer_tpu.algorithms.shor import shors_algorithm
+    from quantumcomputer.algorithms.shor import shors_algorithm
 
     mesh = build_mesh(num_devices=4)
     eng = ShardedStateVectorEngine(Register(L=6, M=6), dtype=jnp.complex64, mesh=mesh, layout="m_high")
@@ -271,13 +271,13 @@ def test_mesh_ladder_fusion_gated_on_device_count():
     therefore fuse only runs of K >= D — asserted here on the lowered
     collective volume for K=3, D=4: the singles form ships less than the
     rotation the ladder would have used."""
-    from quantumcomputer_tpu.utils.profiling import collective_stats
+    from quantumcomputer.utils.profiling import collective_stats
 
     from jax import lax
     from jax.sharding import PartitionSpec as P2
 
-    from quantumcomputer_tpu.parallel.sharded import AXIS, apply_circuit_sharded
-    from quantumcomputer_tpu.sim.engine import fuse_oracle_ladders
+    from quantumcomputer.parallel.sharded import AXIS, apply_circuit_sharded
+    from quantumcomputer.sim.engine import fuse_oracle_ladders
 
     # R >> D so per-offset padding is amortized (the real regime).
     C, M, L, d = 997, 10, 3, 2
@@ -304,7 +304,7 @@ def test_mesh_ladder_fusion_gated_on_device_count():
         me = lax.axis_index(AXIS)
         ls = (1 << n) // D
         z = (lax.iota(jnp.int32, ls) == 1).astype(jnp.complex64)
-        return apply_circuit_sharded(z, gates, n=n, M=M, d=d, me=me, backend="xla")
+        return apply_circuit_sharded(z, gates, n=n, M=M, d=d, me=me)
 
     txt = jax.jit(
         jax.shard_map(body, mesh=mesh, in_specs=(), out_specs=P2(AXIS), check_vma=False)

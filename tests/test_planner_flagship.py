@@ -1,66 +1,39 @@
-"""Planner regression guard for the FLAGSHIP circuit (C=8191, M=13, m_high).
+"""Execution-plan guard for the FLAGSHIP circuit (C=8191, M=13, m_high).
 
-The measured single-chip numbers (bench.py, README) depend on this exact
-segmentation: one fused dense segment for the H layer, per-gate DMA oracle
-singles, composed oracle ladders where the kernels accept them, one fused
-segment for the iQFT.  Any planner drift (e.g. from new op kinds) that
-changes this structure changes the wall-clock — this test pins it.
+The engine executes one pass per entry of engine.planned_circuit: at
+the sizes the flagship is measured (n >= 28) every gate is its own pass
+(the composed-ladder index tensor is not worth its memory there); small
+states compose the oracle run into ladders.  Drift in this plan changes
+the wall-clock — this test pins it.
 """
 
-import jax.numpy as jnp
-
-from quantumcomputer_tpu.models.shor_circuit import shor_circuit_mhigh
-from quantumcomputer_tpu.ops import pallas_fused as pf
-from quantumcomputer_tpu.ops.pallas_oracle import (
-    ladder_high_supported,
-    pair_member_supported,
-)
-from quantumcomputer_tpu.sim.engine import fuse_oracle_ladders
+from quantumcomputer.models.shor_circuit import shor_circuit_mhigh
+from quantumcomputer.sim.engine import LADDER_FUSE_MAX_DIM, MAX_LADDER_RUN, planned_circuit
 
 C, A, M = 8191, 3, 13
 
 
-def _plan(n: int, at_ceiling: bool):
+def _plan(n: int):
     L = n - M
-    circ = shor_circuit_mhigh(C, A, L, M)
-    if at_ceiling:
-        fused = fuse_oracle_ladders(
-            circ, 0,
-            eligible=lambda g: g.name == "camodc_high"
-            and pair_member_supported(g.qubits[0], g.meta[2], n, 4),
-            max_run=2,
-        )
-    else:
-        fused = fuse_oracle_ladders(
-            circ, 0,
-            eligible=lambda g: g.name == "camodc_high"
-            and ladder_high_supported((g.qubits[0],), g.meta[2], n, 4),
-        )
-    return pf.plan_circuit(fused, n, 0)
+    return planned_circuit(shor_circuit_mhigh(C, A, L, M), 0, 1 << n)
 
 
 def test_flagship_n28_segmentation():
-    """n=28 (ladder fits): [H-layer fused] + 11 oracle singles + one
-    composed 4-gate ladder + [iQFT fused]."""
-    segs = _plan(28, at_ceiling=False)
-    kinds = [(s[0], s[1].name if s[0] == "single" else len(s[1])) for s in segs]
-    assert kinds[0] == ("fused", 15)  # 15 H butterflies (L=15)
-    assert kinds[-1] == ("fused", 15)  # 15 iQFT stages
-    mids = kinds[1:-1]
-    assert mids.count(("single", "camodc_high")) == 11
-    assert mids.count(("single", "camodc_ladder_high")) == 1
+    """n=28: 15 H butterflies + 15 oracle singles + 15 iQFT stages, one
+    pass each."""
+    names = [g.name for g in _plan(28)]
+    assert len(names) == 45
+    assert names.count("camodc_high") == 15
+    assert names.count("iqft_stage") == 15
+    assert "camodc_ladder_high" not in names
 
 
-def test_flagship_n30_ceiling_segmentation():
-    """n=30 (memory ceiling, K=2 pairs): [H fused] + 13 oracle singles +
-    two in-place K=2 pairs + [iQFT fused]."""
-    segs = _plan(30, at_ceiling=True)
-    kinds = [(s[0], s[1].name if s[0] == "single" else len(s[1])) for s in segs]
-    assert kinds[0] == ("fused", 17)
-    assert kinds[-1] == ("fused", 17)
-    mids = kinds[1:-1]
-    assert mids.count(("single", "camodc_high")) == 13
-    assert mids.count(("single", "camodc_ladder_high")) == 2
-    for s in segs:
-        if s[0] == "single" and s[1].name == "camodc_ladder_high":
-            assert len(s[1].qubits) == 2  # in-place pair kernel form
+def test_flagship_small_state_composes_ladders():
+    """At the ladder-fusion bound the 11-gate oracle run composes into
+    ladders of at most MAX_LADDER_RUN gates."""
+    n = LADDER_FUSE_MAX_DIM.bit_length() - 1
+    plan = _plan(n)
+    ladders = [g for g in plan if g.name == "camodc_ladder_high"]
+    assert ladders and all(len(g.qubits) <= MAX_LADDER_RUN for g in ladders)
+    assert sum(len(g.qubits) for g in ladders) == n - M
+    assert not any(g.name == "camodc_high" for g in plan)

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from quantumcomputer_tpu.models.shor_circuit import shor_circuit, shor_circuit_reference
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
-from quantumcomputer_tpu.utils import profiling as prof
+from quantumcomputer.models.shor_circuit import shor_circuit, shor_circuit_reference
+from quantumcomputer.sim.engine import Register, StateVectorEngine
+from quantumcomputer.utils import profiling as prof
 
 
 def test_bytes_accounting():
@@ -30,7 +30,7 @@ def test_time_circuit_runs():
 
 
 def test_phase_profile():
-    from quantumcomputer_tpu.models.shor_circuit import (
+    from quantumcomputer.models.shor_circuit import (
         hadamard_layer,
         inverse_qft_fused,
         modexp_ladder,
@@ -70,9 +70,9 @@ def test_collective_stats_parses_real_mesh_program():
     from jax import lax
     from jax.sharding import PartitionSpec as P
 
-    from quantumcomputer_tpu.parallel.mesh import build_mesh
-    from quantumcomputer_tpu.parallel.sharded import AXIS
-    from quantumcomputer_tpu.utils.profiling import collective_bytes, collective_stats
+    from quantumcomputer.parallel.mesh import build_mesh
+    from quantumcomputer.parallel.sharded import AXIS
+    from quantumcomputer.utils.profiling import collective_bytes, collective_stats
 
     if len(jax.devices()) < 4:
         import pytest
@@ -111,9 +111,9 @@ def test_mesh_collective_report():
     import jax.numpy as jnp
     import pytest
 
-    from quantumcomputer_tpu import Register, ShardedStateVectorEngine, StateVectorEngine, build_mesh
-    from quantumcomputer_tpu.models.shor_circuit import shor_circuit_mhigh
-    from quantumcomputer_tpu.utils.profiling import mesh_collective_report
+    from quantumcomputer import Register, ShardedStateVectorEngine, StateVectorEngine, build_mesh
+    from quantumcomputer.models.shor_circuit import shor_circuit_mhigh
+    from quantumcomputer.utils.profiling import mesh_collective_report
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
@@ -121,7 +121,7 @@ def test_mesh_collective_report():
     circ = shor_circuit_mhigh(33, 29, 6, 6)
     reg = Register(L=6, M=6)
     e64 = ShardedStateVectorEngine(reg, dtype=jnp.complex64, mesh=mesh, layout="m_high")
-    e32 = ShardedStateVectorEngine(reg, dtype="complex32", mesh=mesh, layout="m_high", backend="pallas")
+    e32 = ShardedStateVectorEngine(reg, dtype="complex32", mesh=mesh, layout="m_high")
     r64 = mesh_collective_report(e64, circ)
     r32 = mesh_collective_report(e32, circ)
     assert r64["total_bytes"] > 0 and "collective_permute" in r64
@@ -134,7 +134,7 @@ def test_mesh_collective_report():
 def test_collective_stats_ignores_attribute_colons():
     """Attribute dicts contain `: tensor<...>` (dense attrs) — the parser
     must take the trailing function signature, not the attribute type."""
-    from quantumcomputer_tpu.utils.profiling import collective_stats
+    from quantumcomputer.utils.profiling import collective_stats
 
     txt = (
         '%9 = "stablehlo.collective_permute"(%8) <{source_target_pairs = '

@@ -14,12 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.algorithms.qpe import (
+from quantumcomputer.algorithms.qpe import (
     estimate_phase,
     qpe_circuit,
     run_semiclassical_qpe,
 )
-from quantumcomputer_tpu.models.circuit import CPHASE, PHASE, U2Q, H, X
+from quantumcomputer.models.circuit import CPHASE, PHASE, U2Q, H, X
 
 
 def _phase_cu(phi):
@@ -64,7 +64,7 @@ def test_exact_phase_semiclassical_complex32():
     compute dtype), so an exact 4-bit phase still reads deterministically."""
     res = run_semiclassical_qpe(
         _phase_u(6 / 16.0), 4, 1, jax.random.PRNGKey(0),
-        dtype="complex32", backend="pallas",
+        dtype="complex32",
     )
     assert res.x == 6
     np.testing.assert_allclose(res.record.branch_probs, 1.0, atol=5e-2)
@@ -125,8 +125,8 @@ def test_noneigenstate_distribution_parity():
     p(0) = |<e_+|1>|^2 = sin^2(pi/8) = (1 - 1/sqrt2)/2, p(4) = 1 - p(0)."""
     t, M = 3, 1
     # Full register: probabilities of each counting outcome from the state.
-    from quantumcomputer_tpu.algorithms.shor import read_omega
-    from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+    from quantumcomputer.algorithms.shor import read_omega
+    from quantumcomputer.sim.engine import Register, StateVectorEngine
 
     eng = StateVectorEngine(Register(L=t, M=M), dtype=jnp.complex64)
     state = eng.run(qpe_circuit(_h_cu, t, M))
@@ -158,8 +158,8 @@ def test_qpe_recovers_shor_period():
     """QPE instantiated with the modular-multiply controlled powers IS
     find_period: the measured phase feeds the same continued-fraction
     pipeline and yields the period of a mod C."""
-    from quantumcomputer_tpu.algorithms import number_theory as nt
-    from quantumcomputer_tpu.models.circuit import CAMODC
+    from quantumcomputer.algorithms import number_theory as nt
+    from quantumcomputer.models.circuit import CAMODC
 
     C, a, t, M = 15, 7, 3, 4
 
@@ -183,9 +183,9 @@ def test_qpe_on_mesh_engine():
     """The full-register form is pure circuit IR: it runs unchanged on the
     sharded mesh engine (diagonal controlled powers are communication-free
     there)."""
-    from quantumcomputer_tpu.parallel.mesh import build_mesh
-    from quantumcomputer_tpu.parallel.sharded import ShardedStateVectorEngine
-    from quantumcomputer_tpu.sim.engine import Register
+    from quantumcomputer.parallel.mesh import build_mesh
+    from quantumcomputer.parallel.sharded import ShardedStateVectorEngine
+    from quantumcomputer.sim.engine import Register
 
     t, M, k = 3, 2, 5
     mesh = build_mesh(4)
@@ -205,7 +205,7 @@ def test_engine_geometry_validation():
     """A mismatched register or a non-standard layout must raise, not
     silently return a wrong phase (the circuit hard-codes work at [0, M),
     counting at [M, M+t))."""
-    from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+    from quantumcomputer.sim.engine import Register, StateVectorEngine
 
     with pytest.raises(ValueError, match="does not match QPE geometry"):
         estimate_phase(

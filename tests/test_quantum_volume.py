@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu import Register, StateVectorEngine
-from quantumcomputer_tpu.algorithms.quantum_volume import (
+from quantumcomputer import Register, StateVectorEngine
+from quantumcomputer.algorithms.quantum_volume import (
     haar_su4,
     heavy_set,
     ideal_probabilities,
@@ -36,7 +36,7 @@ def test_model_circuit_shape_and_validation():
     with pytest.raises(ValueError):
         qv_model_circuit(1, rng)
     with pytest.raises(ValueError):
-        from quantumcomputer_tpu.models import circuit as cir
+        from quantumcomputer.models import circuit as cir
 
         ideal_probabilities((cir.H(0),), 2)
 
@@ -83,7 +83,7 @@ def test_qv_sigma_is_per_circuit():
 def test_qv_passes_sharded():
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
-    from quantumcomputer_tpu import ShardedStateVectorEngine, build_mesh
+    from quantumcomputer import ShardedStateVectorEngine, build_mesh
 
     mesh = build_mesh(num_devices=4)
     eng = ShardedStateVectorEngine(Register(L=4, M=0), dtype=jnp.complex64, mesh=mesh)
@@ -94,7 +94,7 @@ def test_qv_passes_sharded():
 def test_sharded_zero_state():
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
-    from quantumcomputer_tpu import ShardedStateVectorEngine, build_mesh
+    from quantumcomputer import ShardedStateVectorEngine, build_mesh
 
     mesh = build_mesh(num_devices=4)
     eng = ShardedStateVectorEngine(Register(L=3, M=3), dtype=jnp.complex64, mesh=mesh)
@@ -106,7 +106,7 @@ def test_qv_passes_complex32():
     """The dtype matrix extends to bf16 storage: heavy-set membership is
     robust to complex32's ~1e-3 probability error (the heavy/light gap at
     m=4 is ~p_median), so certification still succeeds."""
-    eng = StateVectorEngine(Register(L=4, M=0), dtype="complex32", backend="pallas")
+    eng = StateVectorEngine(Register(L=4, M=0), dtype="complex32")
     res = run_quantum_volume(4, eng, num_circuits=30, shots=80, seed=5)
     assert res.passed and res.quantum_volume == 16
     assert 0.75 < res.mean_hop < 1.0

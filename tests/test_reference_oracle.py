@@ -7,7 +7,7 @@ import math
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.sim import reference as ref
+from quantumcomputer.sim import reference as ref
 from tests.conftest import random_state
 
 

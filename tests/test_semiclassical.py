@@ -15,12 +15,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.algorithms.semiclassical import (
+from quantumcomputer.algorithms.semiclassical import (
     find_period_semiclassical,
     run_semiclassical,
 )
-from quantumcomputer_tpu.models.shor_circuit import shor_circuit
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.models.shor_circuit import shor_circuit
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 
 
 def _full_register_omega_distribution(C, a, L, M):
@@ -128,8 +128,8 @@ def test_forced_bits_length_mismatch_raises():
         run_semiclassical(
             15, 7, 4, 4, jax.random.PRNGKey(0), forced_bits=[0] * 5, fused=False
         )
-    from quantumcomputer_tpu.parallel.mesh import build_mesh
-    from quantumcomputer_tpu.parallel.sharded_semiclassical import (
+    from quantumcomputer.parallel.mesh import build_mesh
+    from quantumcomputer.parallel.sharded_semiclassical import (
         run_semiclassical_sharded,
     )
 
@@ -172,7 +172,7 @@ def test_semiclassical_checkpoint_dir_cleaned_after_attempt(tmp_path):
 def test_modmul_indices_onchip_matches_host_table():
     """The device-side shift-add index generator must equal the int64 host
     table for every modulus class (odd/even a_inv, C near 2^M, tiny C)."""
-    from quantumcomputer_tpu.ops.gates import (
+    from quantumcomputer.ops.gates import (
         modmul_inverse_indices_onchip,
         modmul_inverse_permutation,
     )
@@ -209,19 +209,18 @@ def test_per_step_path_matches_fused():
 
 def test_fused_auto_selection_honours_memory_budget(monkeypatch):
     """Auto mode must fall back to per-step dispatch when the fused
-    attempt's footprint exceeds the device budget (the v5e fused-attempt
-    crash that calibrated the headroom constants)."""
-    from quantumcomputer_tpu.algorithms import semiclassical as sc
+    attempt's footprint exceeds the device budget."""
+    from quantumcomputer.algorithms import semiclassical as sc
 
     state_bytes = 2 * (1 << 5) * 4  # one (2, 2^M) work-register state
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", str(sc._FUSED_STATES_HEADROOM * state_bytes))
+    monkeypatch.setenv("QC_HBM_BYTES", str(sc._FUSED_STATES_HEADROOM * state_bytes))
     assert sc.fused_attempt_fits(5, jnp.float32)
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", str(sc._FUSED_STATES_HEADROOM * state_bytes - 1))
+    monkeypatch.setenv("QC_HBM_BYTES", str(sc._FUSED_STATES_HEADROOM * state_bytes - 1))
     assert not sc.fused_attempt_fits(5, jnp.float32)
-    # a 16 GB v5e budget: with the implicit-control work-register state,
+    # a 14.5 GiB budget: with the implicit-control work-register state,
     # fused through M=28 (c64) / M=29 (c32); per-step through M=29 (c64) /
-    # M=30 (c32) — the full int32 modulus bound on one chip.
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", str(int(14.5 * (1 << 30))))
+    # M=30 (c32).
+    monkeypatch.setenv("QC_HBM_BYTES", str(int(14.5 * (1 << 30))))
     assert sc.fused_attempt_fits(28, jnp.float32)
     assert not sc.fused_attempt_fits(29, jnp.float32)
     assert sc.step_program_fits(29, jnp.float32)
@@ -231,7 +230,7 @@ def test_fused_auto_selection_honours_memory_budget(monkeypatch):
     assert sc.step_program_fits(30, jnp.bfloat16)
     # the auto path surfaces the ceiling as a clear error (M=4 work state
     # is 128 bytes; a budget under the 3-state per-step floor must refuse)
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", str(3 * 128 - 1))
+    monkeypatch.setenv("QC_HBM_BYTES", str(3 * 128 - 1))
     with pytest.raises(ValueError, match="memory budget"):
         sc.run_semiclassical(15, 7, 3, 4, jax.random.PRNGKey(0))
 
@@ -240,7 +239,7 @@ def test_semiclassical_checkpoint_kill_and_resume(tmp_path):
     """A semiclassical attempt killed mid-run resumes from the last
     snapshot with NO re-measure: same bits/probs as an uninterrupted run,
     and the resumed process executes only the remaining steps."""
-    from quantumcomputer_tpu.algorithms import semiclassical as sc
+    from quantumcomputer.algorithms import semiclassical as sc
 
     C, a, L, M = 21, 2, 8, 5
     key = jax.random.PRNGKey(3)
@@ -294,7 +293,7 @@ def test_semiclassical_checkpoint_corrupt_snapshot_logs_and_restarts(tmp_path):
     run, so caplog (which listens on the root logger) would miss it."""
     import logging
 
-    from quantumcomputer_tpu.algorithms import semiclassical as sc
+    from quantumcomputer.algorithms import semiclassical as sc
 
     C, a, L, M = 15, 7, 5, 4
     key = jax.random.PRNGKey(0)
@@ -313,7 +312,7 @@ def test_semiclassical_checkpoint_corrupt_snapshot_logs_and_restarts(tmp_path):
         def emit(self, record):
             records.append(record)
 
-    logger = logging.getLogger("quantumcomputer_tpu.semiclassical")
+    logger = logging.getLogger("quantumcomputer.semiclassical")
     handler = _Capture(level=logging.WARNING)
     logger.addHandler(handler)
     old_level = logger.level
@@ -331,7 +330,7 @@ def test_semiclassical_checkpoint_corrupt_snapshot_logs_and_restarts(tmp_path):
 def test_modmul_table_large_modulus():
     """The inverse-permutation table must be exact for C > 2^16, where the
     a_inv * f products exceed int32 (int64 host arithmetic)."""
-    from quantumcomputer_tpu.ops.gates import modmul_inverse_permutation
+    from quantumcomputer.ops.gates import modmul_inverse_permutation
 
     C, A, M = 1019 * 1021, 2, 20
     tab = np.asarray(modmul_inverse_permutation(C, A, M))
@@ -350,7 +349,7 @@ def test_semiclassical_large_modulus_end_to_end():
     L + M = 60 qubits (2^60 amplitudes, ~18 EB at complex64); the
     semiclassical state is 2^21.  This is the capability the reference's
     architecture caps at ~n=32 (qc_shor.c:68-73)."""
-    from quantumcomputer_tpu.algorithms.shor import shors_algorithm
+    from quantumcomputer.algorithms.shor import shors_algorithm
 
     res = shors_algorithm(
         C=1019 * 1021, L=40, M=20, forced_trial_int=2, seed=0, semiclassical=True
@@ -360,7 +359,7 @@ def test_semiclassical_large_modulus_end_to_end():
 
 
 def test_cli_semiclassical_bounds():
-    from quantumcomputer_tpu.cli import build_parser, validate
+    from quantumcomputer.cli import build_parser, validate
 
     ok = build_parser().parse_args(
         ["-C", "1040399", "-L", "40", "-M", "20", "--semiclassical"]
@@ -385,7 +384,7 @@ def test_cli_semiclassical_bounds():
 
 
 def test_shors_algorithm_semiclassical_mode():
-    from quantumcomputer_tpu.algorithms.shor import shors_algorithm
+    from quantumcomputer.algorithms.shor import shors_algorithm
 
     res = shors_algorithm(C=15, L=3, M=4, forced_trial_int=7, seed=0, semiclassical=True)
     assert res.ok and res.factors == (5, 3)
@@ -395,7 +394,7 @@ def test_shors_algorithm_semiclassical_mode():
 
 
 def test_cli_semiclassical(capsys):
-    from quantumcomputer_tpu.cli import main
+    from quantumcomputer.cli import main
 
     rc = main(["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--seed", "0", "--semiclassical"])
     out = capsys.readouterr().out
@@ -410,7 +409,7 @@ def test_cli_semiclassical(capsys):
 def test_cli_semiclassical_sharded(capsys):
     """--semiclassical --devices N: the work register shards over the mesh
     (parallel/sharded_semiclassical.py) and the driver factors through it."""
-    from quantumcomputer_tpu.cli import main
+    from quantumcomputer.cli import main
 
     rc = main(
         ["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--seed", "0",
@@ -427,7 +426,7 @@ def test_blockwise_gather_path_matches_direct(monkeypatch):
     oracle pass (the large-M memory form: index blocks generated on the
     fly, reductions folded in) must reproduce the single-block path —
     the blocks decompose an exact permutation plus elementwise math."""
-    from quantumcomputer_tpu.algorithms import semiclassical as sc
+    from quantumcomputer.algorithms import semiclassical as sc
 
     C, a, L, M = 33, 29, 4, 6
     key = jax.random.PRNGKey(7)
@@ -484,12 +483,12 @@ def test_forced_bits_must_be_binary():
     semiclassical entry point must reject them up front."""
     import pytest
 
-    from quantumcomputer_tpu.algorithms.semiclassical import run_semiclassical
+    from quantumcomputer.algorithms.semiclassical import run_semiclassical
 
     with pytest.raises(ValueError, match="must be 0/1"):
         run_semiclassical(15, 7, 4, 4, jax.random.PRNGKey(0), forced_bits=[1, 0, 2, 0])
-    from quantumcomputer_tpu.algorithms.qpe import run_semiclassical_qpe
-    from quantumcomputer_tpu.models.circuit import PHASE
+    from quantumcomputer.algorithms.qpe import run_semiclassical_qpe
+    from quantumcomputer.models.circuit import PHASE
 
     with pytest.raises(ValueError, match="must be 0/1"):
         run_semiclassical_qpe(
@@ -500,7 +499,7 @@ def test_forced_bits_must_be_binary():
 def test_checkpoint_every_validated(tmp_path):
     import pytest
 
-    from quantumcomputer_tpu.algorithms.semiclassical import run_semiclassical
+    from quantumcomputer.algorithms.semiclassical import run_semiclassical
 
     with pytest.raises(ValueError, match="checkpoint_every"):
         run_semiclassical(

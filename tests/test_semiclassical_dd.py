@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.algorithms.semiclassical import (
+from quantumcomputer.algorithms.semiclassical import (
     find_period_semiclassical,
     run_semiclassical,
 )
@@ -81,7 +81,7 @@ def test_dd_end_to_end_period_and_factors():
 
 
 def test_dd_shors_algorithm_semiclassical():
-    from quantumcomputer_tpu.algorithms.shor import shors_algorithm
+    from quantumcomputer.algorithms.shor import shors_algorithm
 
     # seed chosen so the forced-a attempt draws a period-revealing branch
     for seed in range(8):
@@ -96,7 +96,7 @@ def test_dd_shors_algorithm_semiclassical():
 
 
 def test_dd_semiclassical_guards():
-    from quantumcomputer_tpu.parallel.mesh import build_mesh
+    from quantumcomputer.parallel.mesh import build_mesh
 
     with pytest.raises(ValueError, match="single-chip"):
         find_period_semiclassical(
@@ -109,7 +109,7 @@ def test_dd_semiclassical_guards():
 
 
 def test_cli_accepts_and_guards_dd64_semiclassical():
-    from quantumcomputer_tpu.cli import build_parser, validate
+    from quantumcomputer.cli import build_parser, validate
 
     p = build_parser()
     ok = p.parse_args(

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.algorithms import semiclassical as sc
-from quantumcomputer_tpu.algorithms.semiclassical import run_semiclassical
+from quantumcomputer.algorithms import semiclassical as sc
+from quantumcomputer.algorithms.semiclassical import run_semiclassical
 
 
 def _branch_parity(C, L, M, a, forced_bits, dtype=jnp.complex64, rtol=1e-6):
@@ -55,7 +55,7 @@ def test_branch_parity_small_modulus_fallback():
 
 
 def test_sampled_run_and_period_e2e():
-    from quantumcomputer_tpu.algorithms.semiclassical import (
+    from quantumcomputer.algorithms.semiclassical import (
         find_period_semiclassical,
     )
 
@@ -138,22 +138,21 @@ def test_structured_checkpoint_kill_and_resume(tmp_path):
         sc._attempt_fn_structured_segment = real
 
 
-def test_env_override_forces_structured(monkeypatch):
+@pytest.mark.parametrize("structured", [True, False])
+def test_structured_argument_selects_path(structured):
+    """structured=True/False pins the oracle path whatever the default."""
     cache = {}
-    monkeypatch.setenv("QC_SC_STRUCTURED", "1")
-    run_semiclassical(391, 3, 4, 9, jax.random.PRNGKey(0), _cache=cache)
-    assert any(isinstance(k, tuple) and k[0] == "structured" for k in cache)
-    cache.clear()
-    monkeypatch.setenv("QC_SC_STRUCTURED", "0")
-    run_semiclassical(391, 3, 4, 9, jax.random.PRNGKey(0), _cache=cache)
-    assert not any(isinstance(k, tuple) and k[0] == "structured" for k in cache)
+    run_semiclassical(391, 3, 4, 9, jax.random.PRNGKey(0), structured=structured, _cache=cache)
+    assert any(isinstance(k, tuple) and k[0] == "structured" for k in cache) is structured
 
 
-def test_auto_off_cpu(monkeypatch):
-    """Off-TPU the auto policy keeps the compile-once gather programs."""
-    monkeypatch.delenv("QC_SC_STRUCTURED", raising=False)
+@pytest.mark.parametrize("C,a,L,M", [(15311, 2, 4, 14), (391, 3, 4, 9)])
+def test_default_is_the_gather_path(C, a, L, M):
+    """The default keeps the compile-once gather programs at every M: the
+    structured attempt's per-(C, a) compile costs more than its faster
+    steps save in one attempt."""
     cache = {}
-    run_semiclassical(15311, 2, 4, 14, jax.random.PRNGKey(0), _cache=cache)
+    run_semiclassical(C, a, L, M, jax.random.PRNGKey(0), _cache=cache)
     assert not any(isinstance(k, tuple) and k[0] == "structured" for k in cache)
 
 

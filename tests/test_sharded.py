@@ -10,13 +10,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.models import circuit as cir
-from quantumcomputer_tpu.models.shor_circuit import shor_circuit, shor_circuit_reference
-from quantumcomputer_tpu.parallel.mesh import build_mesh
-from quantumcomputer_tpu.parallel.sharded import ShardedStateVectorEngine
-from quantumcomputer_tpu.sim import reference as ref
-from quantumcomputer_tpu.sim import statevec as sv
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.models import circuit as cir
+from quantumcomputer.models.shor_circuit import shor_circuit, shor_circuit_reference
+from quantumcomputer.parallel.mesh import build_mesh
+from quantumcomputer.parallel.sharded import ShardedStateVectorEngine
+from quantumcomputer.sim import reference as ref
+from quantumcomputer.sim import statevec as sv
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 
@@ -163,22 +163,22 @@ def test_mesh_guardrails():
 
 def test_shors_algorithm_with_mesh():
     mesh = build_mesh(num_devices=8)
-    from quantumcomputer_tpu.algorithms.shor import shors_algorithm
+    from quantumcomputer.algorithms.shor import shors_algorithm
 
     res = shors_algorithm(C=15, L=3, M=4, forced_trial_int=7, seed=0, dtype=jnp.complex128, mesh=mesh)
     assert res.ok and res.factors == (5, 3)
 
 
 def test_sharded_local_fusion_parity(rng):
-    # n=16, d=2 -> n_local=14: local runs go through the fused pallas
-    # kernels inside shard_map; globals via collectives.  Compare against
-    # the single-chip xla engine in complex64.
+    # n=16, d=2 -> n_local=14: local gates take the large-state forms
+    # inside shard_map; globals via collectives.  Compare against the
+    # single-device engine in complex64.
     L, M = 10, 6
     C, a_int = 33, 7
     circuit = shor_circuit(C, a_int, L, M)
     mesh = build_mesh(num_devices=4)
-    multi = ShardedStateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, mesh=mesh, backend="pallas")
-    single = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, backend="xla")
+    multi = ShardedStateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, mesh=mesh)
+    single = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64)
     a = single.to_numpy(single.run(circuit))
     b = multi.to_numpy(multi.run(circuit))
     np.testing.assert_allclose(a, b, atol=3e-5)
@@ -189,7 +189,7 @@ def test_sharded_mhigh_full_circuit_parity(C, a, L, M, d):
     """m_high ON THE MESH (ROADMAP 4): the oracle row exchange rides
     ppermute rounds; amplitudes must match the single-chip m_high engine
     and (after the layout unmap) the logical-order reference, to 1e-12."""
-    from quantumcomputer_tpu.models.shor_circuit import shor_circuit_mhigh
+    from quantumcomputer.models.shor_circuit import shor_circuit_mhigh
 
     circ = shor_circuit_mhigh(C, a, L, M)
     mesh = build_mesh(num_devices=1 << d)
@@ -212,8 +212,8 @@ def test_sharded_mhigh_full_circuit_parity(C, a, L, M, d):
 def test_sharded_mhigh_measure_and_shors():
     """End-to-end mesh + m_high: measured omegas land on harmonics and the
     driver factors 15."""
-    from quantumcomputer_tpu.algorithms.shor import read_omega, shors_algorithm
-    from quantumcomputer_tpu.models.shor_circuit import shor_circuit_mhigh
+    from quantumcomputer.algorithms.shor import read_omega, shors_algorithm
+    from quantumcomputer.models.shor_circuit import shor_circuit_mhigh
 
     mesh = build_mesh(num_devices=8)
     eng = ShardedStateVectorEngine(
@@ -242,7 +242,7 @@ def test_sharded_mhigh_guardrails():
 def test_sharded_sample():
     """Non-collapsing batched sampling across the mesh: indices weight by
     |amp|^2 and land on the period-4 harmonics' support for Shor-15."""
-    from quantumcomputer_tpu.algorithms.shor import read_omega
+    from quantumcomputer.algorithms.shor import read_omega
 
     multi = sharded_engine(3, 4)
     state = multi.run(shor_circuit(15, 7, 3, 4))
@@ -259,7 +259,7 @@ def test_ici_device_ordering():
     stay intra-slice (ICI) and only high bits cross DCN (SURVEY.md §5)."""
     from dataclasses import dataclass
 
-    from quantumcomputer_tpu.parallel import mesh as pm
+    from quantumcomputer.parallel import mesh as pm
 
     @dataclass
     class Dev:
@@ -279,7 +279,7 @@ def test_ici_device_ordering():
 def test_ici_degree():
     from dataclasses import dataclass
 
-    from quantumcomputer_tpu.parallel import mesh as pm
+    from quantumcomputer.parallel import mesh as pm
 
     mesh = build_mesh(num_devices=8)  # CPU: one comm domain
     assert pm.ici_degree(mesh) == 3  # all exchanges "ICI"
@@ -314,7 +314,7 @@ def test_sharded_template_oracle_matches_static():
     """Compile-once trial loop ON THE MESH: slot-oracle templates with
     replicated table operands draw the same sample as the constant-baked
     circuit for several trial integers, through ONE cached program."""
-    from quantumcomputer_tpu.models.shor_circuit import (
+    from quantumcomputer.models.shor_circuit import (
         shor_circuit_mhigh,
         shor_circuit_template,
         shor_oracle_tables,
@@ -346,7 +346,7 @@ def test_mesh_subset_is_domain_aligned():
     4+4 (pure 4-blocks), not the 6+2 prefix."""
     from dataclasses import dataclass
 
-    from quantumcomputer_tpu.parallel import mesh as pm
+    from quantumcomputer.parallel import mesh as pm
 
     @dataclass(frozen=True)
     class Dev:
@@ -371,7 +371,7 @@ def test_ici_degree_unequal_domains():
 
     from jax.sharding import Mesh as JMesh
 
-    from quantumcomputer_tpu.parallel import mesh as pm
+    from quantumcomputer.parallel import mesh as pm
 
     class Dev:
         def __init__(self, id, slice_index):
@@ -394,7 +394,7 @@ def test_ici_degree_unequal_domains():
 def test_build_mesh_conflicting_args_rejected():
     import pytest
 
-    from quantumcomputer_tpu.parallel import mesh as pm
+    from quantumcomputer.parallel import mesh as pm
 
     devs = jax.devices()[:4]
     with pytest.raises(ValueError, match="conflicts"):

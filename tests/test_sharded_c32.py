@@ -16,16 +16,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import quantumcomputer_tpu.models.circuit as cir
-from quantumcomputer_tpu.models.shor_circuit import (
+import quantumcomputer.models.circuit as cir
+from quantumcomputer.models.shor_circuit import (
     shor_circuit,
     shor_circuit_mhigh,
     shor_circuit_template,
     shor_oracle_tables,
 )
-from quantumcomputer_tpu.parallel.mesh import build_mesh
-from quantumcomputer_tpu.parallel.sharded import ShardedStateVectorEngine
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.parallel.mesh import build_mesh
+from quantumcomputer.parallel.sharded import ShardedStateVectorEngine
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 
@@ -39,10 +39,10 @@ def _amps(state) -> np.ndarray:
 def _engines(L, M, d, layout="standard"):
     mesh = build_mesh(num_devices=1 << d)
     single = StateVectorEngine(
-        Register(L=L, M=M), dtype="complex32", backend="pallas", layout=layout
+        Register(L=L, M=M), dtype="complex32", layout=layout
     )
     multi = ShardedStateVectorEngine(
-        Register(L=L, M=M), dtype="complex32", mesh=mesh, backend="pallas", layout=layout
+        Register(L=L, M=M), dtype="complex32", mesh=mesh, layout=layout
     )
     return single, multi
 
@@ -161,15 +161,15 @@ def test_c32_halves_collective_bytes_vs_c64():
     circ = (cir.H(5), cir.H(4), cir.H(3))  # three global butterflies
     mesh = build_mesh(num_devices=1 << d)
     e64 = ShardedStateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, mesh=mesh)
-    e32 = ShardedStateVectorEngine(Register(L=L, M=M), dtype="complex32", mesh=mesh, backend="pallas")
+    e32 = ShardedStateVectorEngine(Register(L=L, M=M), dtype="complex32", mesh=mesh)
 
     def collective_shapes(engine):
         # Assert on the LOWERED program (StableHLO): that is the dtype the
         # engine requests on the wire.  (The CPU backend then promotes bf16
         # collectives to f32 — it has no native bf16 — which is a platform
-        # artifact; TPU executes them at bf16.  _ppermute_planes carries an
-        # optimization barrier so XLA's ConvertMover cannot hoist the
-        # blend's upcast across the collective on TPU either.)
+        # artifact.  _ppermute_planes carries an optimization barrier so
+        # XLA's ConvertMover cannot hoist the blend's upcast across the
+        # collective.)
         planar = engine.initial_state()
         txt = engine._compiled_run(circ).lower(planar).as_text()
         pat = _re.compile(r'"stablehlo\.collective_permute"\(%\d+\).*?tensor<(?:\d+x)*([a-z0-9<>]+)>\)\s*->')

@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.models.shor_circuit import shor_circuit
-from quantumcomputer_tpu.parallel.mesh import build_mesh
-from quantumcomputer_tpu.parallel.sharded_dd import ShardedDDStateVectorEngine
-from quantumcomputer_tpu.sim import reference as ref
-from quantumcomputer_tpu.sim.dd_engine import DDStateVectorEngine
-from quantumcomputer_tpu.sim.engine import Register
+from quantumcomputer.models.shor_circuit import shor_circuit
+from quantumcomputer.parallel.mesh import build_mesh
+from quantumcomputer.parallel.sharded_dd import ShardedDDStateVectorEngine
+from quantumcomputer.sim import reference as ref
+from quantumcomputer.sim.dd_engine import DDStateVectorEngine
+from quantumcomputer.sim.engine import Register
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 
@@ -66,7 +66,7 @@ def test_sharded_dd_norm_and_measure():
 
 def test_sharded_dd_generic_gates_parity():
     """Generic gate classes with global qubits (dense 1q, diag, cphase)."""
-    import quantumcomputer_tpu.models.circuit as cir
+    import quantumcomputer.models.circuit as cir
 
     L, M = 4, 2
     n = 6
@@ -82,7 +82,7 @@ def test_sharded_dd_generic_gates_parity():
     assert np.abs(a1 - a2).max() < PARITY
     # and against the exact dense f64 construction
     psi = ref.initial_state(n)
-    from quantumcomputer_tpu.models.circuit import gate_matrix_1q, gate_matrix_2q
+    from quantumcomputer.models.circuit import gate_matrix_1q, gate_matrix_2q
 
     for g in circ:
         if len(g.qubits) == 1:
@@ -94,7 +94,7 @@ def test_sharded_dd_generic_gates_parity():
 
 
 def test_sharded_dd_guardrails():
-    import quantumcomputer_tpu.models.circuit as cir
+    import quantumcomputer.models.circuit as cir
 
     mesh = build_mesh(num_devices=4)
     with pytest.raises(ValueError, match="shard-local"):
@@ -112,8 +112,8 @@ def test_sharded_dd_guardrails():
 
 
 def test_shors_algorithm_dd64_mesh_and_cli():
-    from quantumcomputer_tpu.algorithms.shor import shors_algorithm
-    from quantumcomputer_tpu.cli import main
+    from quantumcomputer.algorithms.shor import shors_algorithm
+    from quantumcomputer.cli import main
 
     mesh = build_mesh(num_devices=4)
     res = shors_algorithm(C=15, L=3, M=4, forced_trial_int=7, seed=0, dtype="dd64", mesh=mesh)
@@ -127,8 +127,8 @@ def test_sharded_dd_zero_state_and_bv():
     contract across shard boundaries at f64-grade precision."""
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
-    from quantumcomputer_tpu.algorithms.oracle_algorithms import bernstein_vazirani
-    from quantumcomputer_tpu.parallel.mesh import build_mesh
+    from quantumcomputer.algorithms.oracle_algorithms import bernstein_vazirani
+    from quantumcomputer.parallel.mesh import build_mesh
 
     mesh = build_mesh(num_devices=4)
     eng = ShardedDDStateVectorEngine(Register(L=6, M=0), mesh=mesh)
@@ -147,10 +147,10 @@ def test_sharded_dd_dense_2q_global_parity():
         pytest.skip("needs 4 virtual devices")
     import numpy as np
 
-    from quantumcomputer_tpu.models import circuit as cir
-    from quantumcomputer_tpu.models.circuit import gate_matrix_2q
-    from quantumcomputer_tpu.parallel.mesh import build_mesh
-    from quantumcomputer_tpu.sim import reference as ref
+    from quantumcomputer.models import circuit as cir
+    from quantumcomputer.models.circuit import gate_matrix_2q
+    from quantumcomputer.parallel.mesh import build_mesh
+    from quantumcomputer.sim import reference as ref
 
     mesh = build_mesh(num_devices=4)  # qubits 4, 5 global at n=6
     eng = ShardedDDStateVectorEngine(Register(L=3, M=3), mesh=mesh)

@@ -14,9 +14,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from quantumcomputer_tpu.algorithms.semiclassical import run_semiclassical
-from quantumcomputer_tpu.parallel.mesh import build_mesh
-from quantumcomputer_tpu.parallel.sharded_semiclassical import (
+from quantumcomputer.algorithms.semiclassical import run_semiclassical
+from quantumcomputer.parallel.mesh import build_mesh
+from quantumcomputer.parallel.sharded_semiclassical import (
     exchange_capacity,
     max_bin_load,
     run_semiclassical_sharded,
@@ -107,7 +107,7 @@ def test_sharded_large_modulus_end_to_end():
     """The 20-bit semiprime factors through the mesh engine: the sharded
     attempt feeds the same CF pipeline (the capability the mesh exists
     for — moduli past the single-chip HBM ceiling)."""
-    from quantumcomputer_tpu.algorithms import number_theory as nt
+    from quantumcomputer.algorithms import number_theory as nt
 
     C, a, L, M = 1019 * 1021, 2, 40, 20
     mesh = build_mesh(8)
@@ -128,7 +128,7 @@ def test_lowered_collective_profile():
     cannot have rewritten the collectives yet."""
     import re
 
-    from quantumcomputer_tpu.parallel.sharded_semiclassical import _attempt_fn
+    from quantumcomputer.parallel.sharded_semiclassical import _attempt_fn
 
     mesh = build_mesh(8)
     fn = _attempt_fn(6, 10, 3, jnp.float32, 64, mesh)
@@ -146,7 +146,7 @@ def test_modmul_onchip_int32_boundary():
     """The shift-add modular multiply must be exact at the int32 limit:
     C just under 2^30 (intermediates reach ~2C ~ 2^31) — the bound that
     sets the sharded-semiclassical modulus ceiling."""
-    from quantumcomputer_tpu.ops.gates import modmul_onchip
+    from quantumcomputer.ops.gates import modmul_onchip
 
     for C in [(1 << 30) - 35, (1 << 30) - 1, (1 << 29) + 1]:
         rng = np.random.default_rng(C & 0xFFFF)
@@ -198,7 +198,7 @@ def test_sharded_exchange_dtype_is_bf16_at_complex32():
     LOWERED StableHLO (platform lowering may widen collectives later)."""
     import re
 
-    from quantumcomputer_tpu.parallel.sharded_semiclassical import _attempt_fn
+    from quantumcomputer.parallel.sharded_semiclassical import _attempt_fn
 
     mesh = build_mesh(8)
     fn = _attempt_fn(6, 10, 3, jnp.bfloat16, 64, mesh)
@@ -206,7 +206,7 @@ def test_sharded_exchange_dtype_is_bf16_at_complex32():
         jnp.int32(1019), jnp.zeros((6,), jnp.int32), jnp.zeros((6,), jnp.int32),
         jnp.zeros((6,), jnp.float32), jnp.zeros((6,), jnp.int32),
     ).as_text()
-    m = re.findall(r'"tpu.all_to_all"[^\n]*|stablehlo\.custom_call[^\n]*all_to_all[^\n]*|%\d+ = [^\n]*all_to_all[^\n]*', txt)
+    m = re.findall(r'stablehlo\.custom_call[^\n]*all_to_all[^\n]*|%\d+ = [^\n]*all_to_all[^\n]*', txt)
     assert m, "no all_to_all found in lowered module"
     assert any("bf16" in line for line in m), m
 
@@ -216,14 +216,14 @@ def test_sharded_memory_gate(monkeypatch):
     before dispatch, not an opaque device OOM mid-attempt."""
     import pytest
 
-    from quantumcomputer_tpu.parallel.mesh import build_mesh
-    from quantumcomputer_tpu.parallel.sharded_semiclassical import (
+    from quantumcomputer.parallel.mesh import build_mesh
+    from quantumcomputer.parallel.sharded_semiclassical import (
         run_semiclassical_sharded,
         sharded_attempt_fits,
     )
-    from quantumcomputer_tpu.utils import memory as qmem
+    from quantumcomputer.utils import memory as qmem
 
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", str(1 << 20))  # 1 MiB chip
+    monkeypatch.setenv("QC_HBM_BYTES", str(1 << 20))  # 1 MiB chip
     assert not sharded_attempt_fits(20, jnp.float32, 2)
     assert sharded_attempt_fits(12, jnp.float32, 2)
     mesh = build_mesh(num_devices=4)
@@ -235,8 +235,8 @@ def test_mesh_cache_keyed_by_content():
     """The compiled-program cache keys by mesh CONTENT (device ids + axis
     names), never id(mesh): a process building fresh meshes cannot
     accumulate one pinned program per Mesh object."""
-    from quantumcomputer_tpu.parallel.mesh import build_mesh
-    from quantumcomputer_tpu.parallel.sharded_semiclassical import (
+    from quantumcomputer.parallel.mesh import build_mesh
+    from quantumcomputer.parallel.sharded_semiclassical import (
         run_semiclassical_sharded,
     )
 

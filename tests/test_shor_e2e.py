@@ -5,7 +5,7 @@ paths, warnings, and the no-remeasure semantic."""
 import jax.numpy as jnp
 import pytest
 
-from quantumcomputer_tpu.algorithms.shor import Outcome, issue_warnings, read_omega, shors_algorithm
+from quantumcomputer.algorithms.shor import Outcome, issue_warnings, read_omega, shors_algorithm
 
 
 def test_factor_15_forced():
@@ -121,9 +121,9 @@ def test_batched_sampling():
     # collapse; distribution must match the omega harmonics.
     import jax
     import numpy as np
-    from quantumcomputer_tpu.algorithms.shor import read_omega
-    from quantumcomputer_tpu.models.shor_circuit import shor_circuit
-    from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+    from quantumcomputer.algorithms.shor import read_omega
+    from quantumcomputer.models.shor_circuit import shor_circuit
+    from quantumcomputer.sim.engine import Register, StateVectorEngine
 
     eng = StateVectorEngine(Register(L=3, M=4), dtype=jnp.complex128)
     state = eng.run(shor_circuit(15, 7, 3, 4))
@@ -141,8 +141,8 @@ def test_run_norm_and_measure_index_match_full_programs():
     import jax
     import jax.numpy as jnp
 
-    from quantumcomputer_tpu.models.shor_circuit import shor_circuit
-    from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+    from quantumcomputer.models.shor_circuit import shor_circuit
+    from quantumcomputer.sim.engine import Register, StateVectorEngine
 
     eng = StateVectorEngine(Register(L=3, M=4), dtype=jnp.complex64)
     circ = shor_circuit(15, 7, 3, 4)
@@ -162,15 +162,15 @@ def test_ladder_memory_gate_disables_fusion(monkeypatch):
     import jax.numpy as jnp
     import numpy as np
 
-    from quantumcomputer_tpu.models.shor_circuit import shor_circuit_mhigh
-    from quantumcomputer_tpu.sim import engine as eng_mod
-    from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+    from quantumcomputer.models.shor_circuit import shor_circuit_mhigh
+    from quantumcomputer.sim import engine as eng_mod
+    from quantumcomputer.sim.engine import Register, StateVectorEngine
 
     C, a, L, M = 8191, 3, 3, 13
     circ = shor_circuit_mhigh(C, a, L, M)
-    e1 = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, backend="pallas", layout="m_high")
+    e1 = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, layout="m_high")
     s_ladder = np.asarray(e1.run(circ))
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", "0")
-    e2 = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, backend="pallas", layout="m_high")
+    monkeypatch.setenv("QC_HBM_BYTES", "0")
+    e2 = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, layout="m_high")
     s_pergate = np.asarray(e2.run(circ))
     np.testing.assert_allclose(s_ladder, s_pergate, atol=2e-6)

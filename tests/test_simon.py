@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.algorithms.simon import (
+from quantumcomputer.algorithms.simon import (
     SimonResult,
     _gf2_nullspace,
     simon_circuit,
     simon_oracle,
     simon_search,
 )
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 
 
 def _f_of(n, s):
@@ -71,7 +71,7 @@ def test_simon_end_to_end(seed, n, s):
 def test_simon_on_sharded_engine():
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
-    from quantumcomputer_tpu import ShardedStateVectorEngine, build_mesh
+    from quantumcomputer import ShardedStateVectorEngine, build_mesh
 
     n, s = 4, 0b1011
     mesh = build_mesh(num_devices=4)

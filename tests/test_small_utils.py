@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.algorithms import number_theory as nt
-from quantumcomputer_tpu.ops import benes, dd, gates
-from quantumcomputer_tpu.sim import statevec as sv
+from quantumcomputer.algorithms import number_theory as nt
+from quantumcomputer.ops import dd, gates
+from quantumcomputer.sim import statevec as sv
 
 
 def test_is_prime():
@@ -18,7 +18,7 @@ def test_is_prime():
 
 
 def test_prime_c_warning():
-    from quantumcomputer_tpu.algorithms.shor import issue_warnings
+    from quantumcomputer.algorithms.shor import issue_warnings
 
     assert any("prime" in w for w in issue_warnings(1021, 20, 10))
     assert any("even" in w for w in issue_warnings(1022, 20, 10))
@@ -30,14 +30,6 @@ def test_apply_permutation():
     perm_inv = jnp.asarray([1, 0, 3, 2, 5, 4, 7, 6])
     out = np.asarray(gates.apply_permutation(state, perm_inv))
     np.testing.assert_array_equal(out.real, [1, 0, 3, 2, 5, 4, 7, 6])
-
-
-def test_benes_stage_count_matches_route():
-    for M in (1, 2, 3, 4):
-        pi = np.random.default_rng(M).permutation(1 << M)
-        stages = benes.benes_route(pi)
-        assert len(stages) <= benes.benes_stage_count(M)
-    assert benes.benes_stage_count(0) == 0
 
 
 def test_dtype_roundtrip():

@@ -12,23 +12,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumcomputer_tpu.models.shor_circuit import (
+from quantumcomputer.models.shor_circuit import (
     shor_circuit,
     shor_circuit_mhigh,
     shor_circuit_template,
     shor_oracle_tables,
 )
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 
 
-@pytest.mark.parametrize("layout,backend", [
-    ("standard", "xla"), ("standard", "pallas"), ("m_high", "pallas"),
+@pytest.mark.parametrize("layout,dtype", [
+    ("standard", jnp.complex64), ("standard", "complex32"), ("m_high", jnp.complex64),
 ])
-def test_template_matches_static_circuit(layout, backend):
+def test_template_matches_static_circuit(layout, dtype):
     """Same key -> same measured index as the constant-baked circuit, for
     several trial integers through ONE cached template program."""
     C, L, M = 33, 5, 6
-    eng = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, backend=backend, layout=layout)
+    eng = StateVectorEngine(Register(L=L, M=M), dtype=dtype, layout=layout)
     template = shor_circuit_template(L, M, layout)
     build = shor_circuit_mhigh if layout == "m_high" else shor_circuit
     for a in (2, 5, 7):
@@ -60,7 +60,7 @@ def test_unforced_driver_uses_template_and_factors():
     """End-to-end unforced factoring goes through the template path
     (asserted via the engine's program cache) and produces correct
     factors."""
-    from quantumcomputer_tpu.algorithms.shor import shors_algorithm
+    from quantumcomputer.algorithms.shor import shors_algorithm
 
     eng = StateVectorEngine(Register(L=3, M=4), dtype=jnp.complex64)
     res = shors_algorithm(C=15, L=3, M=4, seed=11, engine=eng)
@@ -73,29 +73,12 @@ def test_unforced_driver_uses_template_and_factors():
     ), "unforced run did not take the template path"
 
 
-def test_unforced_driver_skips_template_for_benes_oracle():
-    """oracle='benes' is an explicit kernel choice; the template's slot
-    gates would silently run the gather, so the driver keeps the static
-    path there."""
-    from quantumcomputer_tpu.algorithms.shor import shors_algorithm
-
-    eng = StateVectorEngine(
-        Register(L=3, M=4), dtype=jnp.complex64, backend="pallas", oracle="benes"
-    )
-    res = shors_algorithm(C=15, L=3, M=4, seed=11, engine=eng)
-    assert res.ok
-    assert not any(
-        isinstance(k, tuple) and "measure_idx_dyn" in k and k[-1] > 0
-        for k in eng._run_cache
-    )
-
-
 def test_template_skipped_at_memory_ceiling(monkeypatch):
     """allow_template is ignored when two state buffers would not fit (the
     slot oracle's XLA gather is out-of-place): find_period falls back to
     the static in-place path."""
-    import quantumcomputer_tpu.algorithms.shor as shor_mod
-    from quantumcomputer_tpu.algorithms.shor import find_period
+    import quantumcomputer.algorithms.shor as shor_mod
+    from quantumcomputer.algorithms.shor import find_period
 
     calls = {"dyn": 0}
     eng = StateVectorEngine(Register(L=3, M=4), dtype=jnp.complex64)
@@ -107,13 +90,13 @@ def test_template_skipped_at_memory_ceiling(monkeypatch):
         return orig(circuit, tables, key)
 
     eng.run_and_measure_index_with_tables = spy
-    import quantumcomputer_tpu.sim.engine as eng_mod
+    import quantumcomputer.sim.engine as eng_mod
 
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", "1")
+    monkeypatch.setenv("QC_HBM_BYTES", "1")
     rec = find_period(eng, 15, 7, jax.random.PRNGKey(0), allow_template=True)
     assert calls["dyn"] == 0 and rec.period == 4
 
-    monkeypatch.setenv("QC_TPU_HBM_BYTES", str(int(14.5 * (1 << 30))))
+    monkeypatch.setenv("QC_HBM_BYTES", str(int(14.5 * (1 << 30))))
     rec = find_period(eng, 15, 7, jax.random.PRNGKey(0), allow_template=True)
     assert calls["dyn"] == 1 and rec.period == 4
 
@@ -124,8 +107,8 @@ def test_template_works_at_complex32():
     EXACT point masses and bf16 storage noise cannot move any inverse-CDF
     draw across an index boundary."""
     C, a, L, M = 15, 7, 3, 4
-    e32 = StateVectorEngine(Register(L=L, M=M), dtype="complex32", backend="pallas")
-    e64 = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64, backend="pallas")
+    e32 = StateVectorEngine(Register(L=L, M=M), dtype="complex32")
+    e64 = StateVectorEngine(Register(L=L, M=M), dtype=jnp.complex64)
     template = shor_circuit_template(L, M)
     tables = shor_oracle_tables(C, a, L, M)
     for seed in (0, 1, 2):

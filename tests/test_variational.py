@@ -10,7 +10,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from quantumcomputer_tpu.algorithms.variational import (
+from quantumcomputer.algorithms.variational import (
     HardwareEfficientAnsatz,
     apply_pauli,
     dense_hamiltonian,
@@ -22,7 +22,7 @@ from quantumcomputer_tpu.algorithms.variational import (
     tfim_hamiltonian,
     vqe,
 )
-from quantumcomputer_tpu.sim import statevec as sv
+from quantumcomputer.sim import statevec as sv
 
 from conftest import random_state
 

@@ -7,17 +7,17 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from quantumcomputer_tpu.algorithms.variational import (
+from quantumcomputer.algorithms.variational import (
     dense_hamiltonian,
     expectation_on_engine,
     heisenberg_hamiltonian,
     pauli_term,
     tfim_hamiltonian,
 )
-from quantumcomputer_tpu.models import circuit as cir
-from quantumcomputer_tpu.parallel.mesh import build_mesh
-from quantumcomputer_tpu.parallel.sharded import ShardedStateVectorEngine
-from quantumcomputer_tpu.sim.engine import Register, StateVectorEngine
+from quantumcomputer.models import circuit as cir
+from quantumcomputer.parallel.mesh import build_mesh
+from quantumcomputer.parallel.sharded import ShardedStateVectorEngine
+from quantumcomputer.sim.engine import Register, StateVectorEngine
 
 
 def _prep_circuit(n):
@@ -71,7 +71,7 @@ def test_sharded_c32_loose_parity():
     eng64 = ShardedStateVectorEngine(Register(L=n, M=0), dtype=jnp.complex128,
                                      mesh=build_mesh(1 << d))
     eng32 = ShardedStateVectorEngine(Register(L=n, M=0), dtype="complex32",
-                                     mesh=mesh, backend="pallas")
+                                     mesh=mesh)
     circ = _prep_circuit(n)
     terms = tfim_hamiltonian(n)
     want = expectation_on_engine(eng64, eng64.run(circ), terms)
